@@ -1,0 +1,58 @@
+"""Render configuration — counterpart of ``rt/config.py``.
+
+Constants mirror the reference shaders (see ``rt/config.py`` for the WGSL
+citations).  ``RenderConfig`` is a frozen dataclass; nothing is traced or
+compiled per config in the port, so the fields are plain run-time values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+SKY = (0.54, 0.86, 0.92)
+BLUE = (0.54, 0.7, 0.98)
+SAMPLE_FRAME = 1000       # EMA saturation frame
+SAMPLE_PER_FRAME = 1
+BOUNCE_MAX_TRIS = 5
+EPSILON_TRIS = 1e-4
+FLT_MAX = 3.40282e38      # the shader's own constant, NOT float32 max
+
+MAT_LAMBERTIAN = 1
+MAT_METAL = 2
+MAT_DIELECTRIC = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Render parameters.
+
+    There is no ``backend`` field: the device of the tensors decides.  On a
+    CUDA device the hand-written Hopper kernels run; on the CPU their plain
+    PyTorch versions do.  The two compute the same image bit for bit at the
+    same ``tile``.
+    tile — (th, tw) rays per tile: the unit of the tile-union chunk cull
+        and of the per-tile chunk visit order.  One CUDA block traces one
+        tile, so th*tw must be a multiple of 32 and at most 1024 there.
+        ``None`` takes the default of ``kernels.dispatch.wave_params``.
+    normalize_defocus_dir / normalize_reflect_in — the sphere/triangle
+        shader forks (see ``rt/config.py``).
+    """
+
+    width: int = 512
+    height: int = 512
+    bounces: int = BOUNCE_MAX_TRIS
+    samples_per_frame: int = SAMPLE_PER_FRAME
+    sample_frame: int = SAMPLE_FRAME
+    normalize_defocus_dir: bool = False
+    normalize_reflect_in: bool = True
+    mat_kinds: tuple = (MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC)
+    tile: tuple | None = None
+
+    @staticmethod
+    def for_triangles(width: int = 512, height: int = 512,
+                      **kw) -> "RenderConfig":
+        """Config matching shader_tris.wgsl semantics."""
+        kw.setdefault("bounces", BOUNCE_MAX_TRIS)
+        kw.setdefault("normalize_defocus_dir", True)
+        kw.setdefault("normalize_reflect_in", False)
+        return RenderConfig(width=width, height=height, **kw)

@@ -1,0 +1,49 @@
+"""State carried across from the JAX package, as NumPy arrays.
+
+The inputs are the fields of the JAX ``TriangleScene`` / ``Camera`` /
+``RenderState`` after ``np.asarray`` on each; this module never sees a JAX
+type.  The tests use it so both packages compute on the same scene.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rt_torch.core.camera import Camera
+from rt_torch.core.triangle import TriangleScene
+from rt_torch.render.renderer import RenderState
+
+_SCENE_DTYPES = {"a": np.float32, "b": np.float32, "c": np.float32,
+                 "normal": np.float32, "mat_id": np.int32,
+                 "bmin": np.float32, "bmax": np.float32,
+                 "mat_albedo": np.float32, "mat_param": np.float32,
+                 "mat_kind": np.int32}
+
+
+def scene_from_numpy(fields: dict, device="cuda") -> TriangleScene:
+    """fields: name -> array for every field of TriangleScene."""
+    missing = set(_SCENE_DTYPES) - set(fields)
+    if missing:
+        raise ValueError(f"scene fields missing: {sorted(missing)}")
+    return TriangleScene(**{
+        k: torch.from_numpy(np.array(fields[k], dtype=dt, order="C")).to(
+            device) for k, dt in _SCENE_DTYPES.items()})
+
+
+def camera_from_numpy(fields: dict) -> Camera:
+    """fields: name -> array/scalar for every field of Camera."""
+    vec = lambda k: np.asarray(fields[k], np.float32).reshape(4)
+    return Camera(eye=vec("eye"), direction=vec("direction"), up=vec("up"),
+                  right=vec("right"),
+                  focal_length=np.float32(fields["focal_length"]),
+                  focal_blur=np.float32(fields["focal_blur"]),
+                  fov=np.float32(fields["fov"]))
+
+
+def render_state_from_numpy(image, frame_count, device="cuda") -> RenderState:
+    img = np.array(image, dtype=np.float32, order="C")
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"image: need (H, W, 3), got {img.shape}")
+    return RenderState(image=torch.from_numpy(img).to(device),
+                       frame_count=int(frame_count) & 0xFFFFFFFF)

@@ -1,0 +1,534 @@
+"""The triangle wavefront path — counterpart of ``rt/kernels/tris_kernel.py``
+(``_morton_order``, ``pack_tri_table``, ``_trace_bounce``, the first/bounce
+wave kernels and ``render_color_tris_wave``; spp == 1, ``lean`` payload,
+``chunk_oct`` coherence key).
+
+Two kernels carry the path, each a hand-written CUDA kernel
+(``csrc/tris_wave.cu``) with a plain PyTorch version beside it:
+
+- ``wave_first`` — raygen fused with bounce 0 over (th, tw) pixel tiles;
+- ``wave_bounce`` — ``n_bounces`` fused bounces over tiles of th*tw
+  consecutive rays of the sorted stream, payload updated in place.
+
+A wrapper runs the plain version only when its tensors lie on the CPU; on
+a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
+launches, nothing else.
+
+The plain versions are vectorised over all tiles at once — tensors are
+(n_tiles, th*tw) — and loop over chunks and triangles in Python.  The
+tile-union chunk skip is ``live.any(dim=1)``: a tile scans a chunk only if
+one of its live rays enters the chunk's box nearer than its best hit.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from rt_torch.config import EPSILON_TRIS, FLT_MAX
+from rt_torch.core import rng
+from rt_torch.core import vecmath as vm
+from rt_torch.kernels import tracer_common as tc
+
+CHUNK = 32        # triangles per chunk
+TRI_COLS = 13     # a(3), e1 = b-a (3), e2 = c-a (3), normal(3), mat_id as f32
+DEAD_KEY = 2**31 - 1   # sort key of a dead ray: after every live key
+
+# scalars as the exact f32 values the kernels use
+_EPS = float(np.float32(EPSILON_TRIS))
+_FLT_MAX = float(np.float32(FLT_MAX))
+
+LAUNCHES = {"wave_first": 0, "wave_bounce": 0}
+
+
+class PackedScene(NamedTuple):
+    """Kernel operand tables of one TriangleScene (see ``pack_tri_table``)."""
+
+    tab: torch.Tensor       # (m_pad, 13) f32, Morton-clustered order
+    mats: torch.Tensor      # (K, 5) f32: albedo rgb, param, kind
+    chunks: torch.Tensor    # (n_chunks, 6) f32: box min xyz, max xyz
+    centroid: torch.Tensor  # (n_chunks, 3) f32 box centres
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunks.shape[0]
+
+
+class TraceFlags(NamedTuple):
+    """Scene/config facts the bounce specialises on."""
+
+    normalize_reflect_in: bool
+    has_metal: bool
+    has_dielectric: bool
+
+
+def _spread10(v):
+    """Spread the low 10 bits of ``v`` out to every 3rd bit."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _morton_order(centroids: torch.Tensor) -> torch.Tensor:
+    """Spatial sort by 30-bit Morton code.  The sort is stable, so equal
+    codes keep the BVH build's order."""
+    c = centroids.to(torch.float32)
+    lo = c.amin(dim=0)
+    span = torch.clamp(c.amax(dim=0) - lo, min=1e-12)
+    q = torch.clamp((c - lo) / span * 1023.0, 0, 1023).to(torch.int64)
+    code = ((_spread10(q[:, 0]) << 2) | (_spread10(q[:, 1]) << 1)
+            | _spread10(q[:, 2]))
+    return torch.argsort(code, stable=True)
+
+
+def pack_tri_table(scene, chunk: int = CHUNK) -> PackedScene:
+    """Build the kernels' tables: triangles in Morton-clustered order with
+    precomputed edges and the material id in column 12, zero-padded to a
+    chunk multiple (padding rows are degenerate: det == 0 rejects them);
+    the material table; per-chunk vertex AABBs."""
+    m = scene.m
+    # a tensor divisor: CUDA division by a Python scalar is a multiply by
+    # its reciprocal, and the clustering should not depend on the device
+    three = torch.tensor(3.0, dtype=torch.float32, device=scene.a.device)
+    order = _morton_order((scene.a + scene.b + scene.c) / three)
+    a = scene.a[order].to(torch.float32)
+    b = scene.b[order].to(torch.float32)
+    c = scene.c[order].to(torch.float32)
+    mid = torch.clamp(scene.mat_id, 0, scene.mat_albedo.shape[0] - 1)[order]
+    tab = torch.cat([a, b - a, c - a, scene.normal[order].to(torch.float32),
+                     mid.to(torch.float32)[:, None]], dim=1)
+    mats = torch.cat([scene.mat_albedo.to(torch.float32),
+                      scene.mat_param.to(torch.float32)[:, None],
+                      scene.mat_kind.to(torch.float32)[:, None]], dim=1)
+
+    m_pad = -(-m // chunk) * chunk
+    verts_min = verts_max = torch.stack([a, b, c], dim=1)      # (m, 3, 3)
+    if m_pad != m:
+        tab = torch.cat([tab, tab.new_zeros((m_pad - m, TRI_COLS))])
+        pad = tab.new_zeros((m_pad - m, 3, 3))
+        verts_min = torch.cat([verts_min, pad + 3.0e38])
+        verts_max = torch.cat([verts_max, pad - 3.0e38])
+    vmin = verts_min.reshape(-1, chunk * 3, 3).amin(dim=1)
+    vmax = verts_max.reshape(-1, chunk * 3, 3).amax(dim=1)
+    chunks = torch.cat([vmin, vmax], dim=1)
+    centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
+    return PackedScene(tab.contiguous(), mats.contiguous(),
+                       chunks.contiguous(), centroid)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _fmin(a, b):
+    """WGSL min: returns the non-NaN operand."""
+    return torch.where(torch.isnan(a) | (b < a), b, a)
+
+
+def _fmax(a, b):
+    return torch.where(torch.isnan(a) | (b > a), b, a)
+
+
+def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
+                 chunk: int = CHUNK, scan_counts=None):
+    """One bounce over all tiles: front-to-back chunk-culled closest-hit
+    scan, once-per-bounce material resolve, scatter.
+
+    order: (n_tiles, n_chunks) int64 chunk visit order per tile.
+    carry: (state int64, o3, d3, atten3, active int32), each (n_tiles, T).
+    Returns (state, o3, d3, atten3, active, winning chunk id or -1).
+    scan_counts: optional list; gets one [ray-chunk scans, ray-chunk box
+    tests] entry appended — the work this bounce's data asked for: every
+    live ray of a tile scans each chunk that is live for the tile, and
+    every ray of a tile with a live ray tests every chunk's box.
+    """
+    tab, mats, chunks = packed.tab, packed.mats, packed.chunks
+    state, o, d, atten, active = carry
+    alive = active > 0
+    inv_d = (1.0 / d[0], 1.0 / d[1], 1.0 / d[2])
+    zero = torch.zeros_like(o[0])
+    bt = zero + _FLT_MAX
+    bn = (zero, zero, zero)
+    bmid = zero
+    wch = torch.full_like(active, -1)
+    alive_per_tile = alive.sum(dim=1)
+    scans = 0
+
+    for oi in range(packed.n_chunks):
+        ci = order[:, oi]                                   # (n_tiles,)
+        box = chunks[ci]                                    # (n_tiles, 6)
+        bx = [box[:, c:c + 1] for c in range(6)]
+        t0x = (bx[0] - o[0]) * inv_d[0]
+        t1x = (bx[3] - o[0]) * inv_d[0]
+        t0y = (bx[1] - o[1]) * inv_d[1]
+        t1y = (bx[4] - o[1]) * inv_d[1]
+        t0z = (bx[2] - o[2]) * inv_d[2]
+        t1z = (bx[5] - o[2]) * inv_d[2]
+        tmin = _fmax(_fmax(_fmin(t0x, t1x), _fmin(t0y, t1y)),
+                     _fmin(t0z, t1z))
+        tmax = _fmin(_fmin(_fmax(t0x, t1x), _fmax(t0y, t1y)),
+                     _fmax(t0z, t1z))
+        live = alive & (tmin <= tmax) & (tmax >= 0.0) & (tmin < bt)
+        tile_live = live.any(dim=1, keepdim=True)           # (n_tiles, 1)
+        if not bool(tile_live.any()):
+            continue
+        if scan_counts is not None:
+            scans += int((alive_per_tile * tile_live[:, 0]).sum())
+
+        prev = bt
+        lo = ci * chunk
+        for k in range(chunk):
+            tri = tab[lo + k]                               # (n_tiles, 13)
+            col = [tri[:, c:c + 1] for c in range(TRI_COLS)]
+            e1 = (col[3], col[4], col[5])
+            e2 = (col[6], col[7], col[8])
+            h = vm.cross3(d, e2)
+            det = vm.dot3(e1, h)
+            inv_det = 1.0 / det
+            s = (o[0] - col[0], o[1] - col[1], o[2] - col[2])
+            u = inv_det * vm.dot3(s, h)
+            q = vm.cross3(s, e1)
+            v = inv_det * vm.dot3(d, q)
+            t = inv_det * vm.dot3(e2, q)
+            valid = tile_live & (torch.abs(det) >= _EPS)
+            valid &= (u >= 0.0) & (u <= 1.0)
+            valid &= (v >= 0.0) & (u + v <= 1.0)
+            valid &= (t >= _EPS) & (t < bt)
+            bt = torch.where(valid, t, bt)
+            bn = vm.where3(valid, (col[9], col[10], col[11]), bn)
+            bmid = torch.where(valid, col[12], bmid)
+        # the chunk whose scan last improved best-t owns the hit
+        wch = torch.where(bt < prev, ci[:, None].to(wch.dtype), wch)
+
+    if scan_counts is not None:
+        boxes = int((alive_per_tile > 0).sum()) * alive.shape[1]
+        scan_counts.append([scans, boxes * packed.n_chunks])
+
+    hit = alive & (bt != _FLT_MAX)
+
+    # material resolved once per bounce from the winning mat id; misses
+    # resolve to nothing and their scatter output is discarded
+    bal = (zero, zero, zero)
+    bpar = zero
+    bkind = zero
+    for j in range(mats.shape[0]):
+        match = bmid == float(j)
+        bal = vm.where3(match, (mats[j, 0], mats[j, 1], mats[j, 2]), bal)
+        bpar = torch.where(match, mats[j, 3], bpar)
+        bkind = torch.where(match, mats[j, 4], bkind)
+
+    # hit record: flat normal, NO flip, inverted front_face convention
+    point = vm.add3(o, vm.scale3(d, bt))
+    front_face = vm.dot3(bn, d) > 0.0
+    ns, nd = tc.scatter(state, d, point, bn, front_face, bal, bpar,
+                        bkind.to(torch.int32),
+                        normalize_reflect_in=flags.normalize_reflect_in,
+                        has_metal=flags.has_metal,
+                        has_dielectric=flags.has_dielectric)
+
+    state = torch.where(hit, ns, state)
+    o = vm.where3(hit, point, o)
+    d = vm.where3(hit, nd, d)
+    atten = vm.where3(hit, vm.scale3(vm.mul3(atten, bal), 0.7), atten)
+    wch = torch.where(hit, wch, torch.full_like(wch, -1))
+    return state, o, d, atten, hit.to(torch.int32), wch
+
+
+def _check_tile(th: int, tw: int, height_pad: int, width_pad: int):
+    if height_pad % th or width_pad % tw:
+        raise ValueError(f"padded size {width_pad}x{height_pad} is not a "
+                         f"multiple of the tile {tw}x{th}")
+
+
+def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
+                     flags: TraceFlags, *, height: int, width: int,
+                     height_pad: int, width_pad: int, th: int, tw: int,
+                     normalize_defocus_dir: bool, scan_counts=None):
+    """Plain version of ``wave_first`` (same arguments, same results)."""
+    _check_tile(th, tw, height_pad, width_pad)
+    dev = packed.tab.device
+    n_frames = times.shape[0]
+    nh, nw = height_pad // th, width_pad // tw
+    n_tiles = n_frames * nh * nw
+
+    def tiled(x):       # (F, Hp, Wp) image order -> (n_tiles, th*tw)
+        return (x.reshape(n_frames, nh, th, nw, tw).permute(0, 1, 3, 2, 4)
+                .reshape(n_tiles, th * tw))
+
+    def untiled(x):     # back to the flat (F*Hp*Wp,) image order
+        return (x.reshape(n_frames, nh, nw, th, tw).permute(0, 1, 3, 2, 4)
+                .reshape(-1))
+
+    shape = (n_frames, height_pad, width_pad)
+    ys = torch.arange(height_pad, device=dev, dtype=torch.int64) + row0
+    xs = torch.arange(width_pad, device=dev, dtype=torch.int64)
+    y = tiled(ys[None, :, None].expand(shape))
+    x = tiled(xs[None, None, :].expand(shape))
+    t = tiled((times.to(torch.int64) & rng.MASK)[:, None, None].expand(shape))
+
+    cam = [float(v) for v in cam_row.reshape(-1).tolist()]
+    state, o, d4 = tc.generate_rays(
+        cam, x, y, height=height, width=width, time=t,
+        normalize_defocus_dir=normalize_defocus_dir)
+    d = (d4[0], d4[1], d4[2])
+    primary_dy = d4[1]
+    one = torch.ones_like(o[0])
+    carry = (state, o, d, (one, one, one),
+             torch.ones_like(state, dtype=torch.int32))
+    tile_order = order.to(torch.int64).reshape(1, -1).expand(n_tiles, -1)
+    state, o, d, atten, active, wch = trace_bounce(
+        packed, tile_order, carry, flags, scan_counts=scan_counts)
+
+    payf = torch.stack([untiled(p) for p in (*o, *d, *atten, primary_dy)])
+    return (payf, rng.to_i32(untiled(state)), untiled(active), untiled(wch))
+
+
+def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
+                      flags: TraceFlags, *, n_bounces: int, th: int, tw: int,
+                      scan_counts=None):
+    """Plain version of ``wave_bounce``: updates pay/state/active in place
+    and returns the last fused bounce's winning-chunk plane."""
+    n = state.shape[0]
+    tile = th * tw
+    if n % tile:
+        raise ValueError(f"stream of {n} rays is not a multiple of the "
+                         f"{tile}-ray tile")
+    n_tiles = n // tile
+    order = tile_order.to(torch.int64).reshape(n_tiles, -1)
+    p = pay.reshape(9, n_tiles, tile)
+    carry = (rng.from_i32(state).reshape(n_tiles, tile),
+             (p[0], p[1], p[2]), (p[3], p[4], p[5]), (p[6], p[7], p[8]),
+             active.reshape(n_tiles, tile))
+    wch = torch.full((n_tiles, tile), -1, dtype=torch.int32,
+                     device=state.device)
+    for _ in range(n_bounces):
+        # a tile with no live ray is skipped by the kernel; here its lanes
+        # pass through trace_bounce unchanged (no chunk is live for it)
+        # except the chunk plane, which the skip leaves as it was
+        tile_alive = (carry[4] > 0).any(dim=1, keepdim=True)
+        *carry, new_wch = trace_bounce(packed, order, tuple(carry), flags,
+                                       scan_counts=scan_counts)
+        wch = torch.where(tile_alive, new_wch, wch)
+    s, o, d, atten, act = carry
+    pay.copy_(torch.stack([*o, *d, *atten]).reshape(9, n))
+    state.copy_(rng.to_i32(s).reshape(n))
+    active.copy_(act.reshape(n))
+    return wch.reshape(n)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
+# ---------------------------------------------------------------------------
+
+def _require(t: torch.Tensor, name: str, dtype, shape=None):
+    if t.dtype != dtype or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, "
+                         f"got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _check_block(th: int, tw: int):
+    tile = th * tw
+    if tile % 32 or not 32 <= tile <= 1024:
+        raise ValueError(f"tile {tw}x{th} = {tile} rays: one CUDA block "
+                         f"traces one tile, so it must be a multiple of 32 "
+                         f"and at most 1024")
+
+
+def _require_tables(packed: PackedScene, chunk: int):
+    m_pad = packed.tab.shape[0]
+    _require(packed.tab, "tab", torch.float32, (m_pad, TRI_COLS))
+    _require(packed.mats, "mats", torch.float32, (packed.mats.shape[0], 5))
+    _require(packed.chunks, "chunks", torch.float32, (m_pad // chunk, 6))
+
+
+def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
+               flags: TraceFlags, *, height: int, width: int,
+               height_pad: int, width_pad: int, th: int, tw: int,
+               normalize_defocus_dir: bool):
+    """Raygen fused with bounce 0 for F frames of (height_pad, width_pad)
+    pixels (rows beyond ``height`` and columns beyond ``width`` are padding
+    pixels, traced like any other).
+
+    order: (n_chunks,) int32 global chunk visit order.
+    cam_row: (1, 20) f32 on the host.  times: (F,) int32 u32 bit patterns.
+    Returns (payf (10, n) f32: o, d, atten, primary_dy; state (n,) int32;
+    active (n,) int32; winning chunk (n,) int32), n = F*Hp*Wp in image order.
+    """
+    if packed.tab.device.type == "cpu":
+        return wave_first_plain(
+            packed, order, cam_row, times, row0, flags, height=height,
+            width=width, height_pad=height_pad, width_pad=width_pad, th=th,
+            tw=tw, normalize_defocus_dir=normalize_defocus_dir)
+    from rt_torch.kernels import _build
+
+    _check_tile(th, tw, height_pad, width_pad)
+    _check_block(th, tw)
+    _require_tables(packed, CHUNK)
+    _require(order, "order", torch.int32, (packed.n_chunks,))
+    _require(times, "times", torch.int32)
+    n_frames = times.shape[0]
+    n = n_frames * height_pad * width_pad
+    dev = packed.tab.device
+    payf = torch.empty((10, n), dtype=torch.float32, device=dev)
+    state = torch.empty((n,), dtype=torch.int32, device=dev)
+    active = torch.empty((n,), dtype=torch.int32, device=dev)
+    wch = torch.empty((n,), dtype=torch.int32, device=dev)
+    cam = np.ascontiguousarray(cam_row, dtype=np.float32).reshape(-1)
+    if cam.shape[0] != tc.CAM_WIDTH:
+        raise ValueError(f"cam_row: need {tc.CAM_WIDTH} floats")
+
+    lib = _build.load()
+    code = lib.rt_wave_first(
+        packed.tab.data_ptr(), packed.mats.data_ptr(),
+        packed.chunks.data_ptr(), order.data_ptr(), cam.ctypes.data,
+        times.data_ptr(), row0, payf.data_ptr(), state.data_ptr(),
+        active.data_ptr(), wch.data_ptr(), packed.n_chunks, CHUNK,
+        packed.mats.shape[0], height, width, height_pad, width_pad, n_frames,
+        th, tw, int(normalize_defocus_dir), int(flags.normalize_reflect_in),
+        int(flags.has_metal), int(flags.has_dielectric),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "wave_first")
+    LAUNCHES["wave_first"] += 1
+    return payf, state, active, wch
+
+
+def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
+                flags: TraceFlags, *, n_bounces: int, th: int, tw: int):
+    """``n_bounces`` fused bounces over the ray stream, one tile of th*tw
+    consecutive rays per block.  pay (9, n) f32, state (n,) int32 and active
+    (n,) int32 are UPDATED IN PLACE.
+
+    tile_order: (n_tiles * n_chunks,) int32, each tile's chunk visit order.
+    Returns the winning-chunk plane (n,) int32 of the last bounce a tile
+    ran (-1 on a miss or a dead ray).
+    """
+    if packed.tab.device.type == "cpu":
+        return wave_bounce_plain(packed, tile_order, pay, state, active,
+                                 flags, n_bounces=n_bounces, th=th, tw=tw)
+    from rt_torch.kernels import _build
+
+    _check_block(th, tw)
+    _require_tables(packed, CHUNK)
+    n = state.shape[0]
+    tile = th * tw
+    if n % tile:
+        raise ValueError(f"stream of {n} rays is not a multiple of the "
+                         f"{tile}-ray tile")
+    _require(tile_order, "tile_order", torch.int32,
+             (n // tile * packed.n_chunks,))
+    _require(pay, "pay", torch.float32, (9, n))
+    _require(state, "state", torch.int32, (n,))
+    _require(active, "active", torch.int32, (n,))
+    wch = torch.empty((n,), dtype=torch.int32, device=state.device)
+
+    lib = _build.load()
+    code = lib.rt_wave_bounce(
+        packed.tab.data_ptr(), packed.mats.data_ptr(),
+        packed.chunks.data_ptr(), tile_order.data_ptr(), pay.data_ptr(),
+        state.data_ptr(), active.data_ptr(), wch.data_ptr(), n, tile,
+        n_bounces, packed.n_chunks, CHUNK, packed.mats.shape[0],
+        int(flags.normalize_reflect_in), int(flags.has_metal),
+        int(flags.has_dielectric),
+        torch.cuda.current_stream(state.device).cuda_stream)
+    _build.check(lib, code, "wave_bounce")
+    LAUNCHES["wave_bounce"] += 1
+    return wch
+
+
+# ---------------------------------------------------------------------------
+# the wavefront stream around the kernels (plain tensor code on any device)
+# ---------------------------------------------------------------------------
+
+def chunk_order(centroid, origin):
+    """Front-to-back chunk visit order(s): chunks by squared distance of
+    their box centre from ``origin`` ((3,) -> (n_chunks,), or (T, 3) ->
+    (T, n_chunks)), stable, int32.  Order never changes the closest hit
+    (strict t < best), only how early far chunks are rejected."""
+    diff = centroid[None, :, :] - origin.reshape(-1, 1, 3)
+    sq = diff * diff
+    dist = sq[:, :, 0] + sq[:, :, 1] + sq[:, :, 2]
+    order = torch.argsort(dist, dim=1, stable=True).to(torch.int32)
+    return order[0] if origin.dim() == 1 else order
+
+
+def stream_key(pay, active, wch):
+    """``chunk_oct`` coherence key: the winning chunk id of the last bounce
+    (the next origin lies on that chunk's surface) with the direction
+    octant in the low 3 bits; dead rays get DEAD_KEY and sort last."""
+    octant = (((pay[3] > 0).to(torch.int32) << 2)
+              | ((pay[4] > 0).to(torch.int32) << 1)
+              | (pay[5] > 0).to(torch.int32))
+    return torch.where(active > 0, (wch << 3) | octant,
+                       torch.full_like(wch, DEAD_KEY))
+
+
+def bounce_schedule(bounces: int, sort_every: int, skip_last_sort: bool):
+    """[(first bounce, bounces fused, sort before?)] for bounces 1.. of the
+    stream.  The sort before a final launch that is a short remainder
+    (< sort_every bounces) is skipped when ``skip_last_sort``."""
+    out = []
+    for b in range(1, bounces, sort_every):
+        nb = min(sort_every, bounces - b)
+        skip = (skip_last_sort and b + sort_every >= bounces
+                and bounces - b < sort_every)
+        out.append((b, nb, not skip))
+    return out
+
+
+def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
+                           height: int, width: int, height_pad: int,
+                           width_pad: int, bounces: int,
+                           normalize_defocus_dir: bool, flags: TraceFlags,
+                           th: int, tw: int, sort_every: int = 2,
+                           skip_last_sort: bool = True, row0: int = 0):
+    """Planar (F, 3, Hp, Wp) colors for F frames, one sample per pixel.
+
+    cam_row: (1, 20) f32 NumPy row (``dispatch.pack_camera``).
+    times: (F,) int32 tensor of u32 time uniforms on the scene's device.
+    """
+    dev = packed.tab.device
+    n_frames = times.shape[0]
+    n = n_frames * height_pad * width_pad
+    tile = th * tw
+    n_tiles = n // tile
+
+    eye = torch.from_numpy(np.asarray(cam_row, np.float32)[0, 0:3]).to(dev)
+    order = chunk_order(packed.centroid, eye)
+    payf, state, active, wch = wave_first(
+        packed, order, cam_row, times, row0, flags, height=height,
+        width=width, height_pad=height_pad, width_pad=width_pad, th=th,
+        tw=tw, normalize_defocus_dir=normalize_defocus_dir)
+    pay, pdy = payf[0:9], payf[9]
+    pix = None      # stream position -> pixel index; None = identity
+
+    for _, nb, do_sort in bounce_schedule(bounces, sort_every,
+                                          skip_last_sort):
+        if do_sort:
+            # lean payload: `active` is rebuilt from the sorted key and the
+            # primary dy never rides (the sky is applied in pixel order)
+            key, perm = torch.sort(stream_key(pay, active, wch), stable=True)
+            pay = pay[:, perm]
+            state = state[perm]
+            pix = perm if pix is None else pix[perm]
+            active = (key != DEAD_KEY).to(torch.int32)
+        # per-tile front-to-back order from each tile's mean ray origin
+        mo = pay[0:3].reshape(3, n_tiles, tile).mean(dim=2)
+        tile_order = chunk_order(packed.centroid, mo.T).reshape(-1)
+        wch = wave_bounce(packed, tile_order, pay, state, active, flags,
+                          n_bounces=nb, th=th, tw=tw)
+
+    # restore pixel order (an inverse-permutation scatter), then the sky
+    atten = pay[6:9]
+    if pix is not None:
+        restored = torch.empty_like(atten)
+        restored[:, pix] = atten
+        atten = restored
+    col = torch.stack(tc.sky_times_atten(pdy, (atten[0], atten[1], atten[2])))
+    return (col.reshape(3, n_frames, height_pad, width_pad)
+            .permute(1, 0, 2, 3))

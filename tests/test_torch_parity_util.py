@@ -1,0 +1,212 @@
+"""Helpers for the tests that hold ``rt_torch`` against ``rt``: the two JAX
+wave kernels launched on their own in interpret mode (with the specs
+``render_color_tris_wave`` gives them), and NumPy bridges between the two
+packages' scene containers."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.experimental import pallas as pl
+
+from rt.kernels import tris_kernel as jtk
+from rt_torch import convert
+
+
+def scene_fields(jscene) -> dict:
+    return {k: np.asarray(getattr(jscene, k)) for k in jscene._fields}
+
+
+def port_scene(jscene):
+    """The JAX scene's arrays as an rt_torch TriangleScene on the CPU."""
+    return convert.scene_from_numpy(scene_fields(jscene), device="cpu")
+
+
+def port_camera(jcamera):
+    return convert.camera_from_numpy(
+        {k: np.asarray(getattr(jcamera, k)) for k in jcamera._fields})
+
+
+def jax_tables(jscene):
+    tab, mats, chunks, subs, m_pad, n_chunks = jtk.pack_tri_table(jscene)
+    return tab, mats, chunks, subs, n_chunks
+
+
+def _common(mats, n_chunks, flags):
+    return dict(n_chunks=n_chunks, chunk=32, n_mats=mats.shape[0],
+                normalize_reflect_in=flags["normalize_reflect_in"],
+                has_metal=flags["has_metal"],
+                has_dielectric=flags["has_dielectric"], unroll=1,
+                track_chunk=True, sub=0)
+
+
+def jax_wave_first(jscene, cam_row, order, time, *, height, width, hp, wp,
+                   th, tw, flags, normalize_defocus_dir=True):
+    """_wave_first_kernel in interpret mode, one frame.  Returns NumPy
+    (payf (10, n), state u32 (n,), active (n,), wch (n,))."""
+    tab, mats, chunks, subs, n_chunks = jax_tables(jscene)
+    kernel = functools.partial(
+        jtk._wave_first_kernel, height=height, width=width, th=th, tw=tw,
+        normalize_defocus_dir=normalize_defocus_dir,
+        **_common(mats, n_chunks, flags))
+    nh = hp // th
+    plane = lambda dt: jax.ShapeDtypeStruct((hp, wp), dt)
+    pspec = pl.BlockSpec((th, tw), lambda f, i, j: (f * nh + i, j))
+    outs = pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct((10, hp, wp), jnp.float32),
+                   plane(jnp.uint32), plane(jnp.int32), plane(jnp.int32)),
+        grid=(1, nh, wp // tw),
+        in_specs=[_whole(x) for x in (tab, mats, chunks, subs, order,
+                                      cam_row, time, jnp.zeros((1, 1),
+                                                               jnp.int32))],
+        out_specs=(pl.BlockSpec((10, th, tw), lambda f, i, j: (0, f * nh + i,
+                                                              j)),
+                   pspec, pspec, pspec),
+        interpret=True,
+    )(tab, mats, chunks, subs, order, cam_row, time,
+      jnp.zeros((1, 1), jnp.int32))
+    n = hp * wp
+    return (np.asarray(outs[0]).reshape(10, n),
+            np.asarray(outs[1]).reshape(n), np.asarray(outs[2]).reshape(n),
+            np.asarray(outs[3]).reshape(n))
+
+
+def _whole(x):
+    """BlockSpec handing a kernel the whole array at every grid step."""
+    nd = x.ndim
+    return pl.BlockSpec(x.shape, lambda *_: (0,) * nd)
+
+
+def jax_wave_bounce(jscene, tile_order, pay, state, active, *, n_bounces,
+                    th, tw, flags):
+    """_wave_bounce_kernel in interpret mode over a (9, n) stream.  Returns
+    NumPy (pay, state u32, active, wch)."""
+    tab, mats, chunks, subs, n_chunks = jax_tables(jscene)
+    n = pay.shape[1]
+    rows = n // tw
+    kernel = functools.partial(jtk._wave_bounce_kernel, th=th, tw=tw,
+                               n_bounces=n_bounces,
+                               **_common(mats, n_chunks, flags))
+    ray_specs = (pl.BlockSpec((9, th, tw), lambda i: (0, i, 0)),
+                 pl.BlockSpec((th, tw), lambda i: (i, 0)),
+                 pl.BlockSpec((th, tw), lambda i: (i, 0)))
+    tile_order = jnp.asarray(tile_order, jnp.int32).reshape(-1, 1)
+    outs = pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct((9, rows, tw), jnp.float32),
+                   jax.ShapeDtypeStruct((rows, tw), jnp.uint32),
+                   jax.ShapeDtypeStruct((rows, tw), jnp.int32),
+                   jax.ShapeDtypeStruct((rows, tw), jnp.int32)),
+        grid=(rows // th,),
+        in_specs=[_whole(x) for x in (tab, mats, chunks, subs, tile_order)]
+        + list(ray_specs),
+        out_specs=ray_specs + (ray_specs[2],),
+        interpret=True,
+    )(tab, mats, chunks, subs, tile_order,
+      jnp.asarray(pay).reshape(9, rows, tw),
+      jnp.asarray(state, jnp.uint32).reshape(rows, tw),
+      jnp.asarray(active, jnp.int32).reshape(rows, tw))
+    return (np.asarray(outs[0]).reshape(9, n), np.asarray(outs[1]).reshape(n),
+            np.asarray(outs[2]).reshape(n), np.asarray(outs[3]).reshape(n))
+
+
+# ---------------------------------------------------------------------------
+# The same two kernel functions run EAGERLY, op by op, on stand-in refs.
+#
+# XLA's CPU compiler fuses a jitted kernel body and contracts multiply-adds,
+# so the interpret-mode launches above agree with arithmetic that rounds
+# every operation only to a few ULP.  Run eagerly (jax.disable_jit), each
+# jnp op is its own rounded XLA op — the arithmetic the TPU kernel and the
+# port's plain version define — and the comparison can be bitwise.
+# ---------------------------------------------------------------------------
+
+class FakeRef:
+    """Stand-in for a Pallas ref over a NumPy array: scalar and plane reads,
+    plane writes."""
+
+    def __init__(self, array):
+        self.a = np.array(array)
+
+    def __getitem__(self, idx):
+        if idx is Ellipsis:
+            return jnp.asarray(self.a)
+        if isinstance(idx, tuple):
+            return self.a[tuple(int(i) for i in idx)]      # NumPy scalar
+        return jnp.asarray(self.a[int(idx)])
+
+    def __setitem__(self, idx, value):
+        self.a[idx] = np.asarray(value)
+
+
+def _tables_refs(jscene, order):
+    tab, mats, chunks, subs, n_chunks = jax_tables(jscene)
+    refs = [FakeRef(x) for x in (tab, mats, chunks, subs)]
+    refs.append(FakeRef(np.asarray(order, np.int32).reshape(-1, 1)))
+    return refs, mats, n_chunks
+
+
+def eager_wave_first(jscene, cam_row, order, time, *, height,
+                     width, hp, wp, th, tw, flags,
+                     normalize_defocus_dir=True):
+    """_wave_first_kernel, tile by tile, eagerly.  Same returns as
+    jax_wave_first."""
+    refs, mats, n_chunks = _tables_refs(jscene, order)
+    payf = np.zeros((10, hp, wp), np.float32)
+    state = np.zeros((hp, wp), np.uint32)
+    active = np.zeros((hp, wp), np.int32)
+    wch = np.zeros((hp, wp), np.int32)
+    ids = [0, 0, 0]
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jtk.pl, "program_id", lambda axis: ids[axis])
+        for i in range(hp // th):
+            for j in range(wp // tw):
+                ids[1], ids[2] = i, j
+                outs = (FakeRef(np.zeros((10, th, tw), np.float32)),
+                        FakeRef(np.zeros((th, tw), np.uint32)),
+                        FakeRef(np.zeros((th, tw), np.int32)),
+                        FakeRef(np.zeros((th, tw), np.int32)))
+                jtk._wave_first_kernel(
+                    *refs, FakeRef(cam_row),
+                    FakeRef(np.asarray(time, np.uint32).reshape(1, 1)),
+                    FakeRef(np.zeros((1, 1), np.int32)), *outs,
+                    height=height, width=width, th=th, tw=tw,
+                    normalize_defocus_dir=normalize_defocus_dir,
+                    **_common(mats, n_chunks, flags))
+                sl = (slice(i * th, (i + 1) * th), slice(j * tw, (j + 1) * tw))
+                payf[(slice(None),) + sl] = outs[0].a
+                state[sl], active[sl], wch[sl] = (o.a for o in outs[1:])
+    n = hp * wp
+    return (payf.reshape(10, n), state.reshape(n), active.reshape(n),
+            wch.reshape(n))
+
+
+def eager_wave_bounce(jscene, tile_order, pay, state, active, *,
+                      n_bounces, th, tw, flags):
+    """_wave_bounce_kernel, tile by tile, eagerly.  Same returns as
+    jax_wave_bounce."""
+    refs, mats, n_chunks = _tables_refs(jscene, tile_order)
+    n = pay.shape[1]
+    rows = n // tw
+    pay = np.asarray(pay, np.float32).reshape(9, rows, tw)
+    state = np.asarray(state).astype(np.uint32).reshape(rows, tw)
+    active = np.asarray(active, np.int32).reshape(rows, tw)
+    out = (np.zeros_like(pay), np.zeros_like(state), np.zeros_like(active),
+           np.zeros_like(active))
+    ids = [0]
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jtk.pl, "program_id", lambda axis: ids[axis])
+        for i in range(rows // th):
+            ids[0] = i
+            sl = slice(i * th, (i + 1) * th)
+            outs = tuple(FakeRef(np.zeros_like(o[..., sl, :])) for o in out)
+            jtk._wave_bounce_kernel(
+                *refs, FakeRef(pay[:, sl]), FakeRef(state[sl]),
+                FakeRef(active[sl]), *outs, th=th, tw=tw,
+                n_bounces=n_bounces, **_common(mats, n_chunks, flags))
+            for o, r in zip(out, outs):
+                o[..., sl, :] = r.a
+    return (out[0].reshape(9, n), out[1].reshape(n), out[2].reshape(n),
+            out[3].reshape(n))
