@@ -13,9 +13,12 @@ SKY = (0.54, 0.86, 0.92)
 BLUE = (0.54, 0.7, 0.98)
 SAMPLE_FRAME = 1000       # EMA saturation frame
 SAMPLE_PER_FRAME = 1
+BOUNCE_MAX_SPHERE = 10
 BOUNCE_MAX_TRIS = 5
+EPSILON_SPHERE = 1e-6
 EPSILON_TRIS = 1e-4
 FLT_MAX = 3.40282e38      # the shader's own constant, NOT float32 max
+MAX_SPHERES = 100         # the reference's sphere buffer is always this long
 
 MAT_LAMBERTIAN = 1
 MAT_METAL = 2
@@ -36,17 +39,32 @@ class RenderConfig:
         ``None`` takes the default of ``kernels.dispatch.wave_params``.
     normalize_defocus_dir / normalize_reflect_in — the sphere/triangle
         shader forks (see ``rt/config.py``).
+    n_active_spheres — live spheres in the padded buffer (0 = scan all);
+        the sphere kernels scan only this prefix.
+    sky_from_final_dir — extension, default off: the sky term reads the
+        final bounced direction instead of the primary ray's.
     """
 
     width: int = 512
     height: int = 512
-    bounces: int = BOUNCE_MAX_TRIS
+    bounces: int = BOUNCE_MAX_SPHERE
     samples_per_frame: int = SAMPLE_PER_FRAME
     sample_frame: int = SAMPLE_FRAME
     normalize_defocus_dir: bool = False
     normalize_reflect_in: bool = True
+    n_active_spheres: int = 0
     mat_kinds: tuple = (MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC)
+    sky_from_final_dir: bool = False
     tile: tuple | None = None
+
+    @staticmethod
+    def for_spheres(width: int = 512, height: int = 512,
+                    **kw) -> "RenderConfig":
+        """Config matching shader_sphere.wgsl semantics."""
+        kw.setdefault("bounces", BOUNCE_MAX_SPHERE)
+        kw.setdefault("normalize_defocus_dir", False)
+        kw.setdefault("normalize_reflect_in", True)
+        return RenderConfig(width=width, height=height, **kw)
 
     @staticmethod
     def for_triangles(width: int = 512, height: int = 512,

@@ -1,7 +1,7 @@
 """State carried across from the JAX package, as NumPy arrays.
 
-The inputs are the fields of the JAX ``TriangleScene`` / ``Camera`` /
-``RenderState`` after ``np.asarray`` on each; this module never sees a JAX
+The inputs are the fields of the JAX ``TriangleScene`` / ``SphereArray`` /
+``Camera`` / ``RenderState`` after ``np.asarray`` on each; this module never sees a JAX
 type.  The tests use it so both packages compute on the same scene.
 """
 
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from rt_torch.core.camera import Camera
+from rt_torch.core.sphere import SphereArray
 from rt_torch.core.triangle import TriangleScene
 from rt_torch.render.renderer import RenderState
 
@@ -20,15 +21,29 @@ _SCENE_DTYPES = {"a": np.float32, "b": np.float32, "c": np.float32,
                  "mat_albedo": np.float32, "mat_param": np.float32,
                  "mat_kind": np.int32}
 
+_SPHERE_DTYPES = {"center": np.float32, "radius": np.float32,
+                  "albedo": np.float32, "mat_param": np.float32,
+                  "mat_kind": np.int32}
+
+
+def _from_numpy(cls, dtypes: dict, fields: dict, device):
+    missing = set(dtypes) - set(fields)
+    if missing:
+        raise ValueError(f"scene fields missing: {sorted(missing)}")
+    return cls(**{
+        k: torch.from_numpy(np.array(fields[k], dtype=dt, order="C")).to(
+            device) for k, dt in dtypes.items()})
+
 
 def scene_from_numpy(fields: dict, device="cuda") -> TriangleScene:
     """fields: name -> array for every field of TriangleScene."""
-    missing = set(_SCENE_DTYPES) - set(fields)
-    if missing:
-        raise ValueError(f"scene fields missing: {sorted(missing)}")
-    return TriangleScene(**{
-        k: torch.from_numpy(np.array(fields[k], dtype=dt, order="C")).to(
-            device) for k, dt in _SCENE_DTYPES.items()})
+    return _from_numpy(TriangleScene, _SCENE_DTYPES, fields, device)
+
+
+def spheres_from_numpy(fields: dict, device="cuda") -> SphereArray:
+    """fields: name -> array for every field of SphereArray (``mat_kind`` is
+    u32 in the JAX package, i32 here)."""
+    return _from_numpy(SphereArray, _SPHERE_DTYPES, fields, device)
 
 
 def camera_from_numpy(fields: dict) -> Camera:

@@ -1,9 +1,9 @@
 """Builds and loads the hand-written CUDA kernels.
 
 ``load()`` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into a
-shared library under ``rt_torch/kernels/_build/`` (git-ignored) and opens it
-with ``ctypes``.  The sources have a plain C interface and include no
-PyTorch header, so a build takes seconds.  It runs at the first call that
+shared library each under ``rt_torch/kernels/_build/`` (git-ignored) and
+opens them with ``ctypes``.  The sources have a plain C interface and
+include no PyTorch header, so a build takes seconds.  It runs at the first call that
 hands a kernel wrapper a CUDA tensor, never at import.  A failed build
 raises; nothing falls back to the plain versions.
 
@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -30,14 +31,28 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# C signatures of csrc/tris_wave.cu
+# C signatures of the launch functions, by source file
 _SIGNATURES = {
-    "rt_wave_first": [_PTR] * 6 + [_INT] + [_PTR] * 4 + [_INT] * 14 + [_PTR],
-    "rt_wave_bounce": ([_PTR] * 8 + [ctypes.c_longlong] + [_INT] * 8
+    "tris_wave": {
+        "rt_wave_first": ([_PTR] * 6 + [_INT] + [_PTR] * 4 + [_INT] * 14
+                          + [_PTR]),
+        "rt_wave_bounce": ([_PTR] * 8 + [ctypes.c_longlong] + [_INT] * 8
+                           + [_PTR]),
+        "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 8
+                           + [_PTR]),
+    },
+    "spheres": {
+        "rt_spheres": ([_PTR] * 3 + [ctypes.c_uint] + [_PTR] + [_INT] * 14
                        + [_PTR]),
+        "rt_spheres_chunked": ([_PTR] * 5 + [ctypes.c_uint] + [_PTR]
+                               + [_INT] * 15 + [_PTR]),
+    },
 }
 
-_libs: dict = {}
+
+# load()'s result: the launch functions of every built source as attributes,
+# the compiler's log (registers, spills per kernel) as ``build_log``
+_kernels: SimpleNamespace | None = None
 
 
 def find_nvcc() -> str:
@@ -74,33 +89,34 @@ def _compile(nvcc: str, source: str) -> tuple[str, str]:
     return out, proc.stderr
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call.  The compiler's
-    log (registers, spills per kernel) is kept as ``load().build_log``."""
-    if "tris_wave" in _libs:
-        return _libs["tris_wave"]
+def load() -> SimpleNamespace:
+    """The kernels' launch functions, built on first call."""
+    global _kernels
+    if _kernels is not None:
+        return _kernels
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    sources = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                     if f.endswith(".cu"))
+    sources = [os.path.join(CSRC, f"{stem}.cu") for stem in _SIGNATURES]
     # one nvcc per source, all started together
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         built = list(pool.map(lambda s: _compile(nvcc, s), sources))
-    libs = {os.path.basename(s)[:-3]: ctypes.CDLL(path)
-            for s, (path, _) in zip(sources, built)}
-    lib = libs["tris_wave"]
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _INT
-    lib.rt_error_string.argtypes = [_INT]
-    lib.rt_error_string.restype = ctypes.c_char_p
-    lib.build_log = "\n".join(log for _, log in built)
-    _libs.update(libs)
-    return lib
+    k = SimpleNamespace()
+    for (stem, functions), (path, _) in zip(_SIGNATURES.items(), built):
+        lib = ctypes.CDLL(path)
+        for name, argtypes in functions.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+            setattr(k, name, fn)
+        lib.rt_error_string.argtypes = [_INT]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        k.rt_error_string = lib.rt_error_string
+    k.build_log = "\n".join(log for _, log in built)
+    _kernels = k
+    return k
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+def check(lib: SimpleNamespace, code: int, what: str) -> None:
     """Raise if a launch was refused (cudaGetLastError() != 0)."""
     if code != 0:
         raise RuntimeError(

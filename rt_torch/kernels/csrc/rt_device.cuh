@@ -1,5 +1,5 @@
 // Device library shared by the path-tracing kernels: PCG RNG, vector math,
-// camera ray generation and the three-way material scatter.
+// camera ray generation, the three-way material scatter and the sky.
 //
 // Replaces the in-kernel library of the TPU package
 // (rt/kernels/plane_math.py and rt/kernels/tracer_common.py:generate_rays /
@@ -19,6 +19,15 @@ namespace rt {
 struct Vec3 {
     float x, y, z;
 };
+
+// One ray of a kernel's working set.
+struct Ray {
+    uint32_t state;
+    Vec3 o, d, atten;
+    int active;
+};
+
+constexpr float FLT_MAX_WGSL = 3.40282e38f;  // the shader's constant
 
 // Camera row layout (rt_torch/kernels/tracer_common.py).
 struct CameraRow {
@@ -88,6 +97,15 @@ __device__ __forceinline__ float schlick(float cosine, float ref_idx) {
     return r0 + (1.0f - r0) * (x2 * x2 * x);
 }
 __device__ __forceinline__ float fract(float x) { return x - floorf(x); }
+
+// min/max that return the non-NaN operand (WGSL semantics), written as the
+// plain versions write them; the box tests use them
+__device__ __forceinline__ float fmin_w(float a, float b) {
+    return (isnan(a) || b < a) ? b : a;
+}
+__device__ __forceinline__ float fmax_w(float a, float b) {
+    return (isnan(a) || b > a) ? b : a;
+}
 
 __device__ __forceinline__ void normalize2(float& a, float& b) {
     float ln = sqrtf(a * a + b * b);
@@ -196,6 +214,17 @@ __device__ __forceinline__ void scatter(
     d = use_reflect ? normalize3(reflect3(d, normal))
                     : normalize3(refract3(d, normal, ir));
     if (!cannot_refract) state = s1;
+}
+
+// ---- sky --------------------------------------------------------------------
+// color = atten * mix(SKY, BLUE, dy*0.5 + 0.5), unclamped.
+
+__device__ __forceinline__ Vec3 sky_times_atten(float dy, Vec3 atten) {
+    float t = dy * 0.5f + 0.5f;
+    float u = 1.0f - t;
+    return {atten.x * (0.54f * u + 0.54f * t),
+            atten.y * (0.86f * u + 0.7f * t),
+            atten.z * (0.92f * u + 0.98f * t)};
 }
 
 }  // namespace rt

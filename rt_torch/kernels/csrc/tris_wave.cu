@@ -5,9 +5,14 @@
 //   wave_bounce_kernel  replaces rt/kernels/tris_kernel.py:_wave_bounce_kernel
 //                       (n_bounces fused bounces over one tile of the sorted
 //                       ray stream, payload updated in place)
+//   wave_raygen_kernel  replaces rt/kernels/tris_kernel.py:_wave_raygen_kernel
+//                       (primary rays only, for more than one sample per
+//                       pixel: every sample's bounces start from them)
 //
-// Both call one trace_bounce(), as both TPU kernels call _trace_bounce, so
-// they agree per ray.
+// The first two call one trace_bounce(), as both TPU kernels call
+// _trace_bounce, so they agree per ray.  The raygen kernel calls the same
+// generate_ray() as wave_first_kernel; it writes 8 words per pixel and is
+// bound by bytes.
 //
 // What the TPU kernel does on (th, tw) planes with selects, this does with
 // one thread per ray; one block is one tile.  The tile is the unit of two
@@ -38,7 +43,6 @@
 namespace rt {
 
 constexpr float EPSILON_TRIS = 1e-4f;
-constexpr float FLT_MAX_WGSL = 3.40282e38f;  // the shader's constant
 constexpr int TRI_COLS = 13;  // a(3) e1(3) e2(3) normal(3) mat_id
 
 struct Tables {
@@ -50,21 +54,6 @@ struct Tables {
     int n_mats;
     ScatterFlags flags;
 };
-
-struct Ray {
-    uint32_t state;
-    Vec3 o, d, atten;
-    int active;
-};
-
-// min/max that return the non-NaN operand (WGSL semantics), written as the
-// plain version writes them
-__device__ __forceinline__ float fmin_w(float a, float b) {
-    return (isnan(a) || b < a) ? b : a;
-}
-__device__ __forceinline__ float fmax_w(float a, float b) {
-    return (isnan(a) || b > a) ? b : a;
-}
 
 // One bounce for this thread's ray.  EVERY thread of the block must call it
 // (block-wide votes inside).  order: this tile's n_chunks visit entries.
@@ -192,6 +181,35 @@ __global__ void wave_first_kernel(
     wch_out[i] = wch;
 }
 
+// grid (Wp/tw, Hp/th, F), block th*tw, as wave_first_kernel.  od holds 6
+// (F*Hp, Wp) planes: o(3) d(3).  Padding pixels are generated too.
+__global__ void wave_raygen_kernel(
+        CameraRow cam, const uint32_t* __restrict__ times, int row0,
+        int height, int width, int height_pad, int width_pad, int tw,
+        int normalize_defocus_dir, float* __restrict__ od,
+        float* __restrict__ pdy_out, uint32_t* __restrict__ state_out) {
+    const int ly = threadIdx.x / tw, lx = threadIdx.x % tw;
+    const int th = blockDim.x / tw;
+    const int row = blockIdx.y * th + ly;
+    const int col = blockIdx.x * tw + lx;
+    const size_t n = (size_t)gridDim.z * height_pad * width_pad;
+    const size_t i = ((size_t)blockIdx.z * height_pad + row) * width_pad + col;
+
+    uint32_t state;
+    Vec3 o, d;
+    generate_ray(cam, (uint32_t)col, (uint32_t)(row + row0), height, width,
+                 __ldg(times + blockIdx.z), normalize_defocus_dir != 0,
+                 state, o, d);
+    od[0 * n + i] = o.x;
+    od[1 * n + i] = o.y;
+    od[2 * n + i] = o.z;
+    od[3 * n + i] = d.x;
+    od[4 * n + i] = d.y;
+    od[5 * n + i] = d.z;
+    pdy_out[i] = d.y;
+    state_out[i] = state;
+}
+
 // grid n / tile, block tile.  pay is (9, n): o(3) d(3) atten(3); pay, state
 // and active are updated in place.  tile_order is (n_tiles * n_chunks).
 __global__ void wave_bounce_kernel(
@@ -266,6 +284,20 @@ extern "C" int rt_wave_bounce(
     rt::wave_bounce_kernel<<<(unsigned)(n / tile), tile, 0,
                              (cudaStream_t)stream>>>(
         p, tile_order, (size_t)n, n_bounces, pay, state, active, wch);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rt_wave_raygen(
+        const float* cam, const uint32_t* times, int row0, float* od,
+        float* pdy, uint32_t* state, int height, int width, int height_pad,
+        int width_pad, int n_frames, int th, int tw,
+        int normalize_defocus_dir, void* stream) {
+    rt::CameraRow row;
+    for (int c = 0; c < 20; ++c) row.v[c] = cam[c];
+    dim3 grid(width_pad / tw, height_pad / th, n_frames);
+    rt::wave_raygen_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
+        row, times, row0, height, width, height_pad, width_pad, tw,
+        normalize_defocus_dir, od, pdy, state);
     return (int)cudaGetLastError();
 }
 

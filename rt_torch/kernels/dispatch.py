@@ -1,6 +1,8 @@
 """Kernel dispatch: pack scene and camera into the kernels' operand layouts,
 pad the image to tile multiples, launch, crop — counterpart of
-``rt/kernels/dispatch.py`` for TriangleScene.
+``rt/kernels/dispatch.py``: sphere scenes through the fused sphere kernels
+(flat up to 128 live spheres, chunk-culled above), triangle scenes through
+the wavefront path.
 """
 
 from __future__ import annotations
@@ -11,8 +13,9 @@ import numpy as np
 import torch
 
 from rt_torch.config import MAT_DIELECTRIC, MAT_METAL, RenderConfig
+from rt_torch.core.sphere import SphereArray
 from rt_torch.core.triangle import TriangleScene
-from rt_torch.kernels import tris_kernel
+from rt_torch.kernels import sphere_kernel, tris_kernel
 from rt_torch.kernels.tracer_common import (CAM_BLUR, CAM_DIR, CAM_EYE,
                                             CAM_FL, CAM_FOV, CAM_RIGHT,
                                             CAM_TAN, CAM_UP, CAM_WIDTH)
@@ -44,33 +47,71 @@ def pack_camera(camera) -> np.ndarray:
     return row
 
 
+def trace_flags(config: RenderConfig) -> tris_kernel.TraceFlags:
+    """The scene/config facts the bounces specialise on."""
+    return tris_kernel.TraceFlags(
+        normalize_reflect_in=config.normalize_reflect_in,
+        has_metal=MAT_METAL in config.mat_kinds,
+        has_dielectric=MAT_DIELECTRIC in config.mat_kinds)
+
+
 def wave_params(scene, config: RenderConfig) -> dict:
-    """Wavefront knobs for this scene and config: the small-scene branch
-    (m <= 8192) of the JAX package's ``wave_params`` — ``chunk_oct`` key,
-    a re-sort every 2 bounces, no sort before a short final launch."""
+    """Wavefront knobs for this scene and config.  Small scenes
+    (m <= 8192): ``chunk_oct`` key, a re-sort every 2 bounces, no sort
+    before a short final launch.  Large scenes: ``morton`` key, a re-sort
+    every bounce, oversized triangles split off into their own chunks
+    (``pack_scene`` reads ``split_big`` from here)."""
     m = scene.m if isinstance(scene, TriangleScene) else scene.tab.shape[0]
-    if m > SMALL_SCENE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{m} triangles: the large-scene wave branch (morton key, "
-            "sort_every=1, split_big) is not ported yet (ROADMAP M5)")
-    if config.samples_per_frame != 1:
-        raise NotImplementedError(
-            "samples_per_frame > 1 is not ported yet (ROADMAP M5, kernel K4)")
+    large = m > SMALL_SCENE_MAX_TRIS
     th, tw = config.tile or DEFAULT_TILE
     return dict(
         bounces=config.bounces,
         normalize_defocus_dir=config.normalize_defocus_dir,
-        flags=tris_kernel.TraceFlags(
-            normalize_reflect_in=config.normalize_reflect_in,
-            has_metal=MAT_METAL in config.mat_kinds,
-            has_dielectric=MAT_DIELECTRIC in config.mat_kinds),
-        sort_every=2, skip_last_sort=True, th=th, tw=tw)
+        flags=trace_flags(config),
+        key_mode="morton" if large else "chunk_oct",
+        sort_every=1 if large else 2, skip_last_sort=True,
+        spp=config.samples_per_frame,
+        sky_from_final_dir=config.sky_from_final_dir, th=th, tw=tw)
 
 
-def pack_scene(scene: TriangleScene) -> tris_kernel.PackedScene:
-    """The kernels' tables for a scene.  They depend on the scene only, so a
-    renderer packs once and passes them to every frame."""
-    return tris_kernel.pack_tri_table(scene)
+def pack_spheres_table(scene: SphereArray):
+    """((N, 8) f32 table: centre, radius, albedo, parameter; (N,) int32
+    kinds; N)."""
+    tab = torch.cat([scene.center.to(torch.float32),
+                     scene.radius.to(torch.float32)[:, None],
+                     scene.albedo.to(torch.float32),
+                     scene.mat_param.to(torch.float32)[:, None]], dim=1)
+    return (tab.contiguous(), scene.mat_kind.to(torch.int32).contiguous(),
+            scene.count)
+
+
+def pack_scene(scene, config: RenderConfig | None = None):
+    """The kernels' tables for a scene.  They depend on the scene and, for
+    spheres, on ``config.n_active_spheres`` only, so a renderer packs once
+    and passes them to every frame.
+
+    A TriangleScene gives a ``tris_kernel.PackedScene`` (large scenes with
+    ``split_big``).  A SphereArray gives a ``sphere_kernel.PackedSpheres``:
+    the flat table when at most 128 spheres are live, the Morton-chunked
+    one above."""
+    if isinstance(scene, TriangleScene):
+        return tris_kernel.pack_tri_table(
+            scene, split_big=scene.m > SMALL_SCENE_MAX_TRIS)
+    if isinstance(scene, SphereArray):
+        tab, kinds, n = pack_spheres_table(scene)
+        if config is not None and 0 < config.n_active_spheres < n:
+            n = config.n_active_spheres
+        if n > sphere_kernel.FLAT_MAX_SPHERES:
+            return sphere_kernel.pack_spheres_chunked(tab, kinds, n)
+        return sphere_kernel.PackedSpheres(tab, kinds, n, None)
+    raise TypeError(f"unknown scene type {type(scene)}")
+
+
+def _check_device(tab: torch.Tensor, device) -> None:
+    device = torch.device(device)
+    if tab.device.type != device.type:
+        raise ValueError(f"scene lies on {tab.device}, asked to render on "
+                         f"{device}")
 
 
 def render_color_frames(scene, camera, config: RenderConfig, times,
@@ -82,10 +123,7 @@ def render_color_frames(scene, camera, config: RenderConfig, times,
         scene = pack_scene(scene)
     elif not isinstance(scene, tris_kernel.PackedScene):
         raise TypeError(f"unknown scene type {type(scene)}")
-    device = torch.device(device)
-    if scene.tab.device.type != device.type:
-        raise ValueError(f"scene lies on {scene.tab.device}, asked to "
-                         f"render on {device}")
+    _check_device(scene.tab, device)
     h, w = config.height, config.width
     kw = wave_params(scene, config)
     hp, wp = _round_up(h, kw["th"]), _round_up(w, kw["tw"])
@@ -102,6 +140,50 @@ def render_color_frames(scene, camera, config: RenderConfig, times,
     return colors
 
 
+def render_color_spheres(scene, camera, config: RenderConfig, time,
+                         device="cuda"):
+    """(H, W, 3) color for one frame of a sphere scene, one kernel launch.
+    scene: a SphereArray or its PackedSpheres."""
+    if isinstance(scene, SphereArray):
+        scene = pack_scene(scene, config)
+    _check_device(scene.tab, device)
+    h, w = config.height, config.width
+    th, tw = config.tile or DEFAULT_TILE
+    hp, wp = _round_up(h, th), _round_up(w, tw)
+    kw = dict(height=h, width=w, height_pad=hp, width_pad=wp,
+              bounces=config.bounces,
+              normalize_defocus_dir=config.normalize_defocus_dir,
+              flags=trace_flags(config), th=th, tw=tw,
+              sky_from_final_dir=config.sky_from_final_dir,
+              spp=config.samples_per_frame)
+    cam_row = pack_camera(camera)
+    if scene.chunks is None:
+        color = sphere_kernel.render_color_spheres(
+            scene.tab, scene.kinds, cam_row, int(time), n_spheres=scene.n,
+            **kw)
+    else:
+        color = sphere_kernel.render_color_spheres_chunked(
+            scene, cam_row, int(time), **kw)
+    color = color.permute(1, 2, 0)                      # (Hp, Wp, 3)
+    if (hp, wp) != (h, w):
+        color = color[:h, :w]
+    return color
+
+
 def render_color(scene, camera, config: RenderConfig, time, device="cuda"):
-    """(H, W, 3) color for one frame."""
+    """(H, W, 3) color for one frame.  scene: a SphereArray, a
+    TriangleScene, or what ``pack_scene`` made of one."""
+    if isinstance(scene, (SphereArray, sphere_kernel.PackedSpheres)):
+        return render_color_spheres(scene, camera, config, time, device)
     return render_color_frames(scene, camera, config, [int(time)], device)[0]
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by wrapper name (all five kernels)."""
+    return tris_kernel.LAUNCHES | sphere_kernel.LAUNCHES
+
+
+def reset_launch_counts() -> None:
+    for table in (tris_kernel.LAUNCHES, sphere_kernel.LAUNCHES):
+        for name in table:
+            table[name] = 0

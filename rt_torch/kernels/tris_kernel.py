@@ -1,14 +1,18 @@
 """The triangle wavefront path — counterpart of ``rt/kernels/tris_kernel.py``
-(``_morton_order``, ``pack_tri_table``, ``_trace_bounce``, the first/bounce
-wave kernels and ``render_color_tris_wave``; spp == 1, ``lean`` payload,
-``chunk_oct`` coherence key).
+(``_morton_order``, ``pack_tri_table``, ``_trace_bounce``, ``_ray_sort_key``,
+the first/bounce/raygen wave kernels and ``render_color_tris_wave``; ``lean``
+payload, ``chunk_oct`` and ``morton`` coherence keys, any number of samples
+per pixel).
 
-Two kernels carry the path, each a hand-written CUDA kernel
+Three kernels carry the path, each a hand-written CUDA kernel
 (``csrc/tris_wave.cu``) with a plain PyTorch version beside it:
 
-- ``wave_first`` — raygen fused with bounce 0 over (th, tw) pixel tiles;
+- ``wave_first`` — raygen fused with bounce 0 over (th, tw) pixel tiles
+  (one sample per pixel);
 - ``wave_bounce`` — ``n_bounces`` fused bounces over tiles of th*tw
-  consecutive rays of the sorted stream, payload updated in place.
+  consecutive rays of the sorted stream, payload updated in place;
+- ``wave_raygen`` — primary rays only (more than one sample per pixel:
+  every sample's bounces then start from them, through ``wave_bounce``).
 
 A wrapper runs the plain version only when its tensors lie on the CPU; on
 a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -22,6 +26,7 @@ one of its live rays enters the chunk's box nearer than its best hit.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -35,12 +40,15 @@ from rt_torch.kernels import tracer_common as tc
 CHUNK = 32        # triangles per chunk
 TRI_COLS = 13     # a(3), e1 = b-a (3), e2 = c-a (3), normal(3), mat_id as f32
 DEAD_KEY = 2**31 - 1   # sort key of a dead ray: after every live key
+KEY_BITS = 8           # origin bits per axis of the morton key
+# origin code and direction octant must fit below DEAD_KEY together
+assert 3 * KEY_BITS + 3 <= 31
 
 # scalars as the exact f32 values the kernels use
 _EPS = float(np.float32(EPSILON_TRIS))
 _FLT_MAX = float(np.float32(FLT_MAX))
 
-LAUNCHES = {"wave_first": 0, "wave_bounce": 0}
+LAUNCHES = {"wave_first": 0, "wave_bounce": 0, "wave_raygen": 0}
 
 
 class PackedScene(NamedTuple):
@@ -85,16 +93,41 @@ def _morton_order(centroids: torch.Tensor) -> torch.Tensor:
     return torch.argsort(code, stable=True)
 
 
-def pack_tri_table(scene, chunk: int = CHUNK) -> PackedScene:
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median as the mean of the two middle values (``torch.median`` takes
+    the lower one); NaN if any element is."""
+    v, _ = torch.sort(x)
+    mid = (x.shape[0] - 1) / 2
+    med = (v[math.floor(mid)] + v[math.ceil(mid)]) * 0.5
+    return torch.where(torch.isnan(v[-1]), v[-1], med)
+
+
+def pack_tri_table(scene, chunk: int = CHUNK,
+                   split_big: bool = False) -> PackedScene:
     """Build the kernels' tables: triangles in Morton-clustered order with
     precomputed edges and the material id in column 12, zero-padded to a
     chunk multiple (padding rows are degenerate: det == 0 rejects them);
-    the material table; per-chunk vertex AABBs."""
+    the material table; per-chunk vertex AABBs.
+
+    split_big: move oversized triangles (area > 16x the median: a scene's
+    enclosure, a floor) behind all others, into trailing chunks of their
+    own, so they stop inflating the Morton clusters' boxes.  A reordering
+    only: the closest hit does not depend on the order up to exact-t ties.
+    """
     m = scene.m
     # a tensor divisor: CUDA division by a Python scalar is a multiply by
     # its reciprocal, and the clustering should not depend on the device
     three = torch.tensor(3.0, dtype=torch.float32, device=scene.a.device)
     order = _morton_order((scene.a + scene.b + scene.c) / three)
+    if split_big:
+        e1 = scene.b - scene.a
+        e2 = scene.c - scene.a
+        cr = vm.cross3((e1[:, 0], e1[:, 1], e1[:, 2]),
+                       (e2[:, 0], e2[:, 1], e2[:, 2]))
+        area2 = cr[0] * cr[0] + cr[1] * cr[1] + cr[2] * cr[2]
+        big = area2 > 256.0 * _median(area2)    # (16x median edge scale)^2
+        keyed = torch.argsort(big[order].to(torch.int32), stable=True)
+        order = order[keyed]
     a = scene.a[order].to(torch.float32)
     b = scene.b[order].to(torch.float32)
     c = scene.c[order].to(torch.float32)
@@ -244,13 +277,32 @@ def _check_tile(th: int, tw: int, height_pad: int, width_pad: int):
                          f"multiple of the tile {tw}x{th}")
 
 
+def primary_rays(cam_row, times, row0: int, *, height: int, width: int,
+                 height_pad: int, width_pad: int,
+                 normalize_defocus_dir: bool):
+    """Primary rays of F frames as (F, Hp, Wp) planes on the device of
+    ``times`` ((F,) u32 time uniforms, as int32 bit patterns or int64):
+    (RNG state int64, o3, d3); d3[1] is the primary dy.  Rows start at
+    ``row0``; padding pixels are generated like any other."""
+    dev = times.device
+    shape = (times.shape[0], height_pad, width_pad)
+    ys = torch.arange(height_pad, device=dev, dtype=torch.int64) + row0
+    xs = torch.arange(width_pad, device=dev, dtype=torch.int64)
+    t = (times.to(torch.int64) & rng.MASK)[:, None, None].expand(shape)
+    cam = [float(v) for v in np.asarray(cam_row).reshape(-1).tolist()]
+    state, o, d4 = tc.generate_rays(
+        cam, xs[None, None, :].expand(shape), ys[None, :, None].expand(shape),
+        height=height, width=width, time=t,
+        normalize_defocus_dir=normalize_defocus_dir)
+    return state, o, (d4[0], d4[1], d4[2])
+
+
 def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
                      flags: TraceFlags, *, height: int, width: int,
                      height_pad: int, width_pad: int, th: int, tw: int,
                      normalize_defocus_dir: bool, scan_counts=None):
     """Plain version of ``wave_first`` (same arguments, same results)."""
     _check_tile(th, tw, height_pad, width_pad)
-    dev = packed.tab.device
     n_frames = times.shape[0]
     nh, nw = height_pad // th, width_pad // tw
     n_tiles = n_frames * nh * nw
@@ -263,19 +315,12 @@ def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
         return (x.reshape(n_frames, nh, nw, th, tw).permute(0, 1, 3, 2, 4)
                 .reshape(-1))
 
-    shape = (n_frames, height_pad, width_pad)
-    ys = torch.arange(height_pad, device=dev, dtype=torch.int64) + row0
-    xs = torch.arange(width_pad, device=dev, dtype=torch.int64)
-    y = tiled(ys[None, :, None].expand(shape))
-    x = tiled(xs[None, None, :].expand(shape))
-    t = tiled((times.to(torch.int64) & rng.MASK)[:, None, None].expand(shape))
-
-    cam = [float(v) for v in cam_row.reshape(-1).tolist()]
-    state, o, d4 = tc.generate_rays(
-        cam, x, y, height=height, width=width, time=t,
+    state, o, d = primary_rays(
+        cam_row, times, row0, height=height, width=width,
+        height_pad=height_pad, width_pad=width_pad,
         normalize_defocus_dir=normalize_defocus_dir)
-    d = (d4[0], d4[1], d4[2])
-    primary_dy = d4[1]
+    state, o, d = tiled(state), tuple(map(tiled, o)), tuple(map(tiled, d))
+    primary_dy = d[1]
     one = torch.ones_like(o[0])
     carry = (state, o, d, (one, one, one),
              torch.ones_like(state, dtype=torch.int32))
@@ -285,6 +330,19 @@ def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
 
     payf = torch.stack([untiled(p) for p in (*o, *d, *atten, primary_dy)])
     return (payf, rng.to_i32(untiled(state)), untiled(active), untiled(wch))
+
+
+def wave_raygen_plain(cam_row, times, row0: int, *, height: int, width: int,
+                      height_pad: int, width_pad: int,
+                      normalize_defocus_dir: bool):
+    """Plain version of ``wave_raygen`` (same arguments without the launch
+    geometry, same results)."""
+    state, o, d = primary_rays(
+        cam_row, times, row0, height=height, width=width,
+        height_pad=height_pad, width_pad=width_pad,
+        normalize_defocus_dir=normalize_defocus_dir)
+    od = torch.stack([p.reshape(-1) for p in (*o, *d)])
+    return od, d[1].reshape(-1), rng.to_i32(state.reshape(-1))
 
 
 def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
@@ -330,6 +388,14 @@ def _require(t: torch.Tensor, name: str, dtype, shape=None):
                          f"got {t.dtype} on {t.device}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _cam_array(cam_row) -> np.ndarray:
+    """The camera row as the 20 contiguous host floats a launch reads."""
+    cam = np.ascontiguousarray(cam_row, dtype=np.float32).reshape(-1)
+    if cam.shape[0] != tc.CAM_WIDTH:
+        raise ValueError(f"cam_row: need {tc.CAM_WIDTH} floats")
+    return cam
 
 
 def _check_block(th: int, tw: int):
@@ -379,9 +445,7 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
     state = torch.empty((n,), dtype=torch.int32, device=dev)
     active = torch.empty((n,), dtype=torch.int32, device=dev)
     wch = torch.empty((n,), dtype=torch.int32, device=dev)
-    cam = np.ascontiguousarray(cam_row, dtype=np.float32).reshape(-1)
-    if cam.shape[0] != tc.CAM_WIDTH:
-        raise ValueError(f"cam_row: need {tc.CAM_WIDTH} floats")
+    cam = _cam_array(cam_row)
 
     lib = _build.load()
     code = lib.rt_wave_first(
@@ -396,6 +460,46 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
     _build.check(lib, code, "wave_first")
     LAUNCHES["wave_first"] += 1
     return payf, state, active, wch
+
+
+def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
+                height_pad: int, width_pad: int, th: int, tw: int,
+                normalize_defocus_dir: bool):
+    """Primary rays of F frames of (height_pad, width_pad) pixels, padding
+    pixels included, on the device ``times`` lies on.
+
+    cam_row: (1, 20) f32 on the host.  times: (F,) int32 u32 bit patterns.
+    Returns (od (6, n) f32: o, d; primary dy (n,) f32; post-raygen RNG
+    state (n,) int32), n = F*Hp*Wp in image order.  (th, tw) is the launch
+    geometry only: one block per tile, no ray reads another's.
+    """
+    if times.device.type == "cpu":
+        return wave_raygen_plain(
+            cam_row, times, row0, height=height, width=width,
+            height_pad=height_pad, width_pad=width_pad,
+            normalize_defocus_dir=normalize_defocus_dir)
+    from rt_torch.kernels import _build
+
+    _check_tile(th, tw, height_pad, width_pad)
+    _check_block(th, tw)
+    _require(times, "times", torch.int32)
+    n_frames = times.shape[0]
+    n = n_frames * height_pad * width_pad
+    dev = times.device
+    od = torch.empty((6, n), dtype=torch.float32, device=dev)
+    pdy = torch.empty((n,), dtype=torch.float32, device=dev)
+    state = torch.empty((n,), dtype=torch.int32, device=dev)
+    cam = _cam_array(cam_row)
+
+    lib = _build.load()
+    code = lib.rt_wave_raygen(
+        cam.ctypes.data, times.data_ptr(), row0, od.data_ptr(),
+        pdy.data_ptr(), state.data_ptr(), height, width, height_pad,
+        width_pad, n_frames, th, tw, int(normalize_defocus_dir),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "wave_raygen")
+    LAUNCHES["wave_raygen"] += 1
+    return od, pdy, state
 
 
 def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
@@ -457,10 +561,39 @@ def chunk_order(centroid, origin):
     return order[0] if origin.dim() == 1 else order
 
 
-def stream_key(pay, active, wch):
-    """``chunk_oct`` coherence key: the winning chunk id of the last bounce
-    (the next origin lies on that chunk's surface) with the direction
-    octant in the low 3 bits; dead rays get DEAD_KEY and sort last."""
+def scene_bounds(chunks):
+    """(lo (3,), 1 / span (3,)) of the scene, from the chunk boxes: the
+    range the morton key quantises ray origins over."""
+    lo = chunks[:, 0:3].amin(dim=0)
+    span = torch.clamp(chunks[:, 3:6].amax(dim=0) - lo, min=1e-30)
+    return lo, 1.0 / span
+
+
+def ray_sort_key(pay, active, lo, inv_span):
+    """``morton`` coherence key: the ray origin's Morton code (KEY_BITS per
+    axis over the scene bounds) above the direction's sign octant; dead
+    rays get DEAD_KEY and sort last.  int32, like every key here."""
+    top = float((1 << KEY_BITS) - 1)
+    q = [torch.clamp((pay[c] - lo[c]) * inv_span[c] * top, 0.0,
+                     top).to(torch.int32) for c in range(3)]
+    code = (_spread10(q[0]) << 2) | (_spread10(q[1]) << 1) | _spread10(q[2])
+    # one direction bit per axis: floor((d + 1) * 1) clipped to [0, 1]
+    qd = [torch.clamp(pay[3 + c] + 1.0, 0.0, 1.0).to(torch.int32)
+          for c in range(3)]
+    key = (code << 3) | (qd[0] << 2) | (qd[1] << 1) | qd[2]
+    return torch.where(active > 0, key, torch.full_like(key, DEAD_KEY))
+
+
+def stream_key(pay, active, wch, key_mode: str = "chunk_oct", bounds=None):
+    """The coherence key of a stream sort, int32.  ``"chunk_oct"``: the
+    winning chunk id of the last bounce (the next origin lies on that
+    chunk's surface) with the direction octant in the low 3 bits.
+    ``"morton"``: ``ray_sort_key`` over ``bounds = scene_bounds(chunks)``.
+    Dead rays get DEAD_KEY and sort last."""
+    if key_mode == "morton":
+        return ray_sort_key(pay, active, *bounds)
+    if key_mode != "chunk_oct":
+        raise ValueError(f"key_mode {key_mode!r}: chunk_oct or morton")
     octant = (((pay[3] > 0).to(torch.int32) << 2)
               | ((pay[4] > 0).to(torch.int32) << 1)
               | (pay[5] > 0).to(torch.int32))
@@ -468,16 +601,18 @@ def stream_key(pay, active, wch):
                        torch.full_like(wch, DEAD_KEY))
 
 
-def bounce_schedule(bounces: int, sort_every: int, skip_last_sort: bool):
-    """[(first bounce, bounces fused, sort before?)] for bounces 1.. of the
-    stream.  The sort before a final launch that is a short remainder
+def bounce_schedule(bounces: int, sort_every: int, skip_last_sort: bool,
+                    start: int = 1):
+    """[(first bounce, bounces fused, sort before?)] for bounces start.. of
+    the stream.  No sort before bounce 0 (primary rays are coherent in
+    pixel order).  The sort before a final launch that is a short remainder
     (< sort_every bounces) is skipped when ``skip_last_sort``."""
     out = []
-    for b in range(1, bounces, sort_every):
+    for b in range(start, bounces, sort_every):
         nb = min(sort_every, bounces - b)
         skip = (skip_last_sort and b + sort_every >= bounces
                 and bounces - b < sort_every)
-        out.append((b, nb, not skip))
+        out.append((b, nb, b > 0 and not skip))
     return out
 
 
@@ -486,49 +621,89 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
                            width_pad: int, bounces: int,
                            normalize_defocus_dir: bool, flags: TraceFlags,
                            th: int, tw: int, sort_every: int = 2,
-                           skip_last_sort: bool = True, row0: int = 0):
-    """Planar (F, 3, Hp, Wp) colors for F frames, one sample per pixel.
+                           skip_last_sort: bool = True, row0: int = 0,
+                           key_mode: str = "chunk_oct", spp: int = 1,
+                           sky_from_final_dir: bool = False):
+    """Planar (F, 3, Hp, Wp) colors for F frames.
 
     cam_row: (1, 20) f32 NumPy row (``dispatch.pack_camera``).
     times: (F,) int32 tensor of u32 time uniforms on the scene's device.
+    key_mode: ``"chunk_oct"`` or ``"morton"``, the coherence key of the
+    stream sorts.
+    spp > 1: the SAME primary rays are traced spp times with the per-pixel
+    RNG state carried across samples in pixel order, each sample a full
+    pass of the stream from bounce 0, and the sum is divided by spp.
     """
     dev = packed.tab.device
     n_frames = times.shape[0]
     n = n_frames * height_pad * width_pad
     tile = th * tw
     n_tiles = n // tile
+    bounds = scene_bounds(packed.chunks) if key_mode == "morton" else None
 
-    eye = torch.from_numpy(np.asarray(cam_row, np.float32)[0, 0:3]).to(dev)
-    order = chunk_order(packed.centroid, eye)
-    payf, state, active, wch = wave_first(
-        packed, order, cam_row, times, row0, flags, height=height,
-        width=width, height_pad=height_pad, width_pad=width_pad, th=th,
-        tw=tw, normalize_defocus_dir=normalize_defocus_dir)
-    pay, pdy = payf[0:9], payf[9]
-    pix = None      # stream position -> pixel index; None = identity
+    def stream_bounces(pay, state, active, wch, start):
+        """Bounces start.. over the stream.  Returns (pay, state, stream
+        position -> pixel index or None for identity)."""
+        pix = None
+        for _, nb, do_sort in bounce_schedule(bounces, sort_every,
+                                              skip_last_sort, start):
+            if do_sort:
+                # lean payload: `active` is rebuilt from the sorted key and
+                # the primary dy never rides (the sky is applied in pixel
+                # order)
+                key, perm = torch.sort(
+                    stream_key(pay, active, wch, key_mode, bounds),
+                    stable=True)
+                pay = pay[:, perm]
+                state = state[perm]
+                pix = perm if pix is None else pix[perm]
+                active = (key != DEAD_KEY).to(torch.int32)
+            # per-tile front-to-back order from each tile's mean ray origin
+            mo = pay[0:3].reshape(3, n_tiles, tile).mean(dim=2)
+            tile_order = chunk_order(packed.centroid, mo.T).reshape(-1)
+            wch = wave_bounce(packed, tile_order, pay, state, active, flags,
+                              n_bounces=nb, th=th, tw=tw)
+        return pay, state, pix
 
-    for _, nb, do_sort in bounce_schedule(bounces, sort_every,
-                                          skip_last_sort):
-        if do_sort:
-            # lean payload: `active` is rebuilt from the sorted key and the
-            # primary dy never rides (the sky is applied in pixel order)
-            key, perm = torch.sort(stream_key(pay, active, wch), stable=True)
-            pay = pay[:, perm]
-            state = state[perm]
-            pix = perm if pix is None else pix[perm]
-            active = (key != DEAD_KEY).to(torch.int32)
-        # per-tile front-to-back order from each tile's mean ray origin
-        mo = pay[0:3].reshape(3, n_tiles, tile).mean(dim=2)
-        tile_order = chunk_order(packed.centroid, mo.T).reshape(-1)
-        wch = wave_bounce(packed, tile_order, pay, state, active, flags,
-                          n_bounces=nb, th=th, tw=tw)
+    def to_pixels(x, pix):
+        """Stream order -> pixel order (an inverse-permutation scatter)."""
+        if pix is None:
+            return x
+        out = torch.empty_like(x)
+        out[..., pix] = x
+        return out
 
-    # restore pixel order (an inverse-permutation scatter), then the sky
-    atten = pay[6:9]
-    if pix is not None:
-        restored = torch.empty_like(atten)
-        restored[:, pix] = atten
-        atten = restored
-    col = torch.stack(tc.sky_times_atten(pdy, (atten[0], atten[1], atten[2])))
+    def sample_color(pay, pix, pdy):
+        atten = to_pixels(pay[6:9], pix)
+        dy = to_pixels(pay[4], pix) if sky_from_final_dir else pdy
+        return torch.stack(tc.sky_times_atten(
+            dy, (atten[0], atten[1], atten[2])))
+
+    if spp == 1:
+        eye = torch.from_numpy(
+            np.asarray(cam_row, np.float32)[0, 0:3].copy()).to(dev)
+        payf, state, active, wch = wave_first(
+            packed, chunk_order(packed.centroid, eye), cam_row, times, row0,
+            flags, height=height, width=width, height_pad=height_pad,
+            width_pad=width_pad, th=th, tw=tw,
+            normalize_defocus_dir=normalize_defocus_dir)
+        pay, _, pix = stream_bounces(payf[0:9], state, active, wch, 1)
+        col = sample_color(pay, pix, payf[9])
+    else:
+        od, pdy, state_px = wave_raygen(
+            cam_row, times, row0, height=height, width=width,
+            height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
+            normalize_defocus_dir=normalize_defocus_dir)
+        acc = torch.zeros((3, n), dtype=torch.float32, device=dev)
+        for _ in range(spp):
+            pay = torch.cat([od, torch.ones_like(od[0:3])])
+            active = torch.ones((n,), dtype=torch.int32, device=dev)
+            pay, state, pix = stream_bounces(pay, state_px, active, None, 0)
+            # the RNG state goes back to pixel order with atten
+            state_px = to_pixels(state, pix)
+            acc = acc + sample_color(pay, pix, pdy)
+        # a tensor divisor: CUDA division by a Python scalar multiplies by
+        # its reciprocal, which is not the IEEE quotient
+        col = acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
     return (col.reshape(3, n_frames, height_pad, width_pad)
             .permute(1, 0, 2, 3))

@@ -1,7 +1,8 @@
 """Progressive renderer — counterpart of ``rt/render/renderer.py``.
 
 ``render_frame(scene, camera, state, time, config) -> state`` traces every
-pixel once and folds the frame into the accumulator with the reference's
+pixel (``config.samples_per_frame`` samples, looped inside the kernels'
+paths) and folds the frame into the accumulator with the reference's
 EMA:  w = 1 / (min(frame_count, SAMPLE_FRAME) + 1);  new = mix(old, color, w).
 Any camera or scene change must zero both the accumulator and the frame
 count (``ProgressiveRenderer.reset_frame_count``).
@@ -33,7 +34,7 @@ def init_state(config: RenderConfig, device="cuda") -> RenderState:
 
 def render_frame(scene, camera, state: RenderState, time,
                  config: RenderConfig, device="cuda") -> RenderState:
-    """draw(): trace every pixel once and EMA-accumulate."""
+    """draw(): trace every pixel and EMA-accumulate."""
     color = dispatch.render_color(scene, camera, config, time, device)
     fc = min(state.frame_count, config.sample_frame)
     # weights in float32 on the host, as the f32 scalars the mix multiplies by
@@ -65,7 +66,7 @@ class ProgressiveRenderer:
         self.time = 0
         self.state = init_state(self.config, self.device)
         # kernel tables depend on the scene only: packed once, not per frame
-        self._packed = dispatch.pack_scene(scene_def.scene)
+        self._packed = dispatch.pack_scene(scene_def.scene, self.config)
 
     def set_time(self, time: int):
         self.time = int(time) & 0xFFFFFFFF

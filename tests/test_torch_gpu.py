@@ -7,10 +7,13 @@ runs without the JAX package's test harness:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from rt_torch.kernels import dispatch as tdispatch
+from rt_torch.kernels import sphere_kernel as tsk
 from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import scenes as tscenes
 
@@ -20,7 +23,8 @@ TIME = 1000
 @pytest.mark.gpu
 def test_cuda_kernels_equal_plain_versions_bitwise():
     """On a card: K2 and K3 launched through their wrappers against the
-    plain versions on the same CUDA tensors.  Tolerance: none."""
+    plain versions on the same CUDA tensors.  Tolerance: none, here and in
+    every test of this file."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sd = tscenes.scene_suzanne(128, 128, device="cuda")
@@ -50,3 +54,148 @@ def test_cuda_kernels_equal_plain_versions_bitwise():
     assert ttk.LAUNCHES["wave_bounce"] == before["wave_bounce"] + 1
     for a, b in zip((*ins[0], kw_), (*ins[1], pw_)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bit_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_raygen_kernel_equals_plain_version_bitwise():
+    """K4 on two frames of Suzanne's camera, a band offset included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_suzanne(128, 128, device="cuda")
+    cam_row = tdispatch.pack_camera(sd.camera)
+    times = torch.tensor([TIME, TIME + 10], dtype=torch.int32, device="cuda")
+    args = dict(height=128, width=128, height_pad=64, width_pad=128,
+                normalize_defocus_dir=True)
+    before = ttk.LAUNCHES["wave_raygen"]
+    k = ttk.wave_raygen(cam_row, times, 64, th=8, tw=16, **args)
+    p = ttk.wave_raygen_plain(cam_row, times, 64, **args)
+    assert ttk.LAUNCHES["wave_raygen"] == before + 1
+    for a, b in zip(k, p):
+        assert _bit_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make_scene,spp,sky_from_final_dir", [
+    ("scene_sphere_simple", 1, False), ("scene_sphere_simple", 3, False),
+    ("test_scene_complex", 2, True), ("scene_sphere_globe", 1, False)])
+def test_cuda_sphere_kernel_equals_plain_version_bitwise(make_scene, spp,
+                                                         sky_from_final_dir):
+    """K5: the whole frame, all three materials, the sample loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = getattr(tscenes, make_scene)(128, 96, device="cuda")
+    p = tdispatch.pack_scene(sd.scene, sd.config)
+    assert p.chunks is None
+    args = dict(n_spheres=p.n, height=96, width=128, height_pad=96,
+                width_pad=128, bounces=sd.config.bounces,
+                normalize_defocus_dir=False,
+                flags=tdispatch.trace_flags(sd.config), spp=spp,
+                sky_from_final_dir=sky_from_final_dir)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    before = tsk.LAUNCHES["spheres"]
+    k = tsk.render_color_spheres(p.tab, p.kinds, cam_row, TIME, th=8, tw=16,
+                                 **args)
+    assert tsk.LAUNCHES["spheres"] == before + 1
+    assert _bit_equal(k, tsk.render_color_spheres_plain(
+        p.tab, p.kinds, cam_row, TIME, **args))
+    with pytest.raises(ValueError, match="n_spheres"):
+        tsk.render_color_spheres(p.tab, p.kinds, cam_row, TIME, th=8, tw=16,
+                                 **dict(args, n_spheres=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,spp", [((8, 16), 1), ((8, 32), 2)])
+def test_cuda_chunked_sphere_kernel_equals_plain_and_flat_bitwise(tile, spp):
+    """K6 on the cover scene against its plain version at the same tile,
+    and against the flat plain scan over the same Morton-ordered table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_sphere_cover(256, 128, device="cuda")
+    cfg = dataclasses.replace(sd.config, bounces=6)
+    p = tdispatch.pack_scene(sd.scene, cfg)
+    assert p.chunks is not None
+    args = dict(height=128, width=256, height_pad=128, width_pad=256,
+                bounces=cfg.bounces, normalize_defocus_dir=False,
+                flags=tdispatch.trace_flags(cfg), spp=spp)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    before = tsk.LAUNCHES["spheres_chunked"]
+    k = tsk.render_color_spheres_chunked(p, cam_row, TIME, th=tile[0],
+                                         tw=tile[1], **args)
+    assert tsk.LAUNCHES["spheres_chunked"] == before + 1
+    assert _bit_equal(k, tsk.render_color_spheres_chunked_plain(
+        p, cam_row, TIME, th=tile[0], tw=tile[1], **args))
+    assert _bit_equal(k, tsk.render_color_spheres_plain(
+        p.tab, p.kinds, cam_row, TIME, n_spheres=p.n, **args))
+
+
+@pytest.mark.gpu
+def test_cuda_bounce_kernel_from_raygen_equals_plain_version_bitwise():
+    """K3 as a path of more than one sample per pixel launches it first:
+    2 fused bounces on K4's output, every ray alive, in pixel order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_suzanne(128, 128, device="cuda")
+    kw = tdispatch.wave_params(sd.scene, sd.config)
+    th, tw, flags = kw["th"], kw["tw"], kw["flags"]
+    packed = tdispatch.pack_scene(sd.scene)
+    times = torch.tensor([TIME], dtype=torch.int32, device="cuda")
+    od, _, state = ttk.wave_raygen(
+        tdispatch.pack_camera(sd.camera), times, 0, height=128, width=128,
+        height_pad=128, width_pad=128, th=th, tw=tw,
+        normalize_defocus_dir=True)
+    pay = torch.cat([od, torch.ones_like(od[0:3])])
+    mo = pay[0:3].reshape(3, -1, th * tw).mean(dim=2)
+    tile_order = ttk.chunk_order(packed.centroid, mo.T).reshape(-1)
+    ins = [(pay.clone(), state.clone(), torch.ones_like(state))
+           for _ in range(2)]
+    k = ttk.wave_bounce(packed, tile_order, *ins[0], flags, n_bounces=2,
+                        th=th, tw=tw)
+    p = ttk.wave_bounce_plain(packed, tile_order, *ins[1], flags,
+                              n_bounces=2, th=th, tw=tw)
+    for a, b in zip((*ins[0], k), (*ins[1], p)):
+        assert _bit_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_equal_plain_versions_on_the_large_branch_bitwise():
+    """K2, then one 1-bounce K3 on the morton-sorted stream, on lucy's
+    ``split_big`` tables (about 20K triangles): the large-scene branch.
+    The plain versions loop over every chunk and triangle in Python, so
+    this takes some tens of seconds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    size = 64
+    sd = tscenes.scene_lucy(size, size, device="cuda")
+    kw = tdispatch.wave_params(sd.scene, sd.config)
+    assert kw["key_mode"] == "morton" and kw["sort_every"] == 1
+    th, tw, flags = kw["th"], kw["tw"], kw["flags"]
+    packed = tdispatch.pack_scene(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    order = ttk.chunk_order(packed.centroid,
+                            torch.from_numpy(cam_row[0, 0:3].copy()).cuda())
+    times = torch.tensor([TIME], dtype=torch.int32, device="cuda")
+    args = dict(height=size, width=size, height_pad=size, width_pad=size,
+                th=th, tw=tw, normalize_defocus_dir=True)
+    k = ttk.wave_first(packed, order, cam_row, times, 0, flags, **args)
+    p = ttk.wave_first_plain(packed, order, cam_row, times, 0, flags, **args)
+    for a, b in zip(k, p):
+        assert _bit_equal(a, b)
+    payf, state, active, wch = k
+    key, perm = torch.sort(
+        ttk.stream_key(payf, active, wch, "morton",
+                       ttk.scene_bounds(packed.chunks)), stable=True)
+    pay = payf[0:9][:, perm].contiguous()
+    mo = pay[0:3].reshape(3, -1, th * tw).mean(dim=2)
+    tile_order = ttk.chunk_order(packed.centroid, mo.T).reshape(-1)
+    ins = [(pay.clone(), state[perm].contiguous(),
+            (key != ttk.DEAD_KEY).to(torch.int32)) for _ in range(2)]
+    kw_ = ttk.wave_bounce(packed, tile_order, *ins[0], flags, n_bounces=1,
+                          th=th, tw=tw)
+    pw_ = ttk.wave_bounce_plain(packed, tile_order, *ins[1], flags,
+                                n_bounces=1, th=th, tw=tw)
+    for a, b in zip((*ins[0], kw_), (*ins[1], pw_)):
+        assert _bit_equal(a, b)

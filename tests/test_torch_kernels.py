@@ -296,3 +296,11 @@ def test_cuda_entry_points_fail_loudly_without_a_card():
     sd = tscenes.scene_quad(16, 8, device="cpu")
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         tdispatch.render_color(sd.scene, sd.camera, sd.config, TIME)
+    # the same through K4 (spp > 1) and for a sphere scene (K5)
+    import dataclasses
+    spp = dataclasses.replace(sd.config, samples_per_frame=2)
+    with pytest.raises((RuntimeError, AssertionError, ValueError)):
+        tdispatch.render_color(sd.scene, sd.camera, spp, TIME)
+    ss = tscenes.scene_sphere_simple(16, 8, device="cpu")
+    with pytest.raises((RuntimeError, AssertionError, ValueError)):
+        tdispatch.render_color(ss.scene, ss.camera, ss.config, TIME)

@@ -1,7 +1,8 @@
-"""Helpers for the tests that hold ``rt_torch`` against ``rt``: the two JAX
-wave kernels launched on their own in interpret mode (with the specs
-``render_color_tris_wave`` gives them), and NumPy bridges between the two
-packages' scene containers."""
+"""Helpers for the tests that hold ``rt_torch`` against ``rt``: the JAX wave
+kernels launched on their own in interpret mode (with the specs
+``render_color_tris_wave`` gives them), the JAX kernel bodies run eagerly on
+stand-in refs, and NumPy bridges between the two packages' scene
+containers."""
 
 import functools
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 from jax.experimental import pallas as pl
 
+from rt.kernels import sphere_kernel as jsk
 from rt.kernels import tris_kernel as jtk
 from rt_torch import convert
 
@@ -22,6 +24,11 @@ def scene_fields(jscene) -> dict:
 def port_scene(jscene):
     """The JAX scene's arrays as an rt_torch TriangleScene on the CPU."""
     return convert.scene_from_numpy(scene_fields(jscene), device="cpu")
+
+
+def port_spheres(jscene):
+    """The JAX SphereArray's arrays as an rt_torch SphereArray on the CPU."""
+    return convert.spheres_from_numpy(scene_fields(jscene), device="cpu")
 
 
 def port_camera(jcamera):
@@ -210,3 +217,98 @@ def eager_wave_bounce(jscene, tile_order, pay, state, active, *,
                 o[..., sl, :] = r.a
     return (out[0].reshape(9, n), out[1].reshape(n), out[2].reshape(n),
             out[3].reshape(n))
+
+
+def eager_wave_raygen(cam_row, time, *, height, width, hp, wp, th, tw,
+                      normalize_defocus_dir=True):
+    """_wave_raygen_kernel, tile by tile, eagerly, one frame.  Returns NumPy
+    (od (6, n), primary dy (n,), state u32 (n,))."""
+    od = np.zeros((6, hp, wp), np.float32)
+    pdy = np.zeros((hp, wp), np.float32)
+    state = np.zeros((hp, wp), np.uint32)
+    ids = [0, 0, 0]
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jtk.pl, "program_id", lambda axis: ids[axis])
+        for i in range(hp // th):
+            for j in range(wp // tw):
+                ids[1], ids[2] = i, j
+                outs = (FakeRef(np.zeros((6, th, tw), np.float32)),
+                        FakeRef(np.zeros((th, tw), np.float32)),
+                        FakeRef(np.zeros((th, tw), np.uint32)))
+                jtk._wave_raygen_kernel(
+                    FakeRef(cam_row),
+                    FakeRef(np.asarray(time, np.uint32).reshape(1, 1)),
+                    FakeRef(np.zeros((1, 1), np.int32)), *outs,
+                    height=height, width=width, th=th, tw=tw,
+                    normalize_defocus_dir=normalize_defocus_dir)
+                sl = (slice(i * th, (i + 1) * th), slice(j * tw, (j + 1) * tw))
+                od[(slice(None),) + sl] = outs[0].a
+                pdy[sl], state[sl] = outs[1].a, outs[2].a
+    n = hp * wp
+    return od.reshape(6, n), pdy.reshape(n), state.reshape(n)
+
+
+def _jax_carry(carry):
+    """A port carry (state int64, o3, d3, atten3, active) of (th, tw) NumPy
+    planes as the JAX kernels' carry."""
+    state, o, d, atten, active = carry
+    f = lambda v: tuple(jnp.asarray(c, jnp.float32) for c in v)
+    return (jnp.asarray(np.asarray(state).astype(np.uint32)), f(o), f(d),
+            f(atten), jnp.asarray(active, jnp.int32))
+
+
+def _numpy_carry(out):
+    state, o, d, atten, active = out
+    f = lambda v: tuple(np.asarray(c) for c in v)
+    return (np.asarray(state).astype(np.int64), f(o), f(d), f(atten),
+            np.asarray(active))
+
+
+def eager_sphere_bounce(tab, kinds, carry, *, n_spheres, flags, chunked=None):
+    """``_sphere_bounce`` (or, with chunked=(aabbs, order), the chunked
+    bounce) run eagerly on ONE tile.  tab (N, 8), kinds (N,), carry of
+    (th, tw) NumPy planes.  Returns the new carry as NumPy."""
+    th, tw = np.asarray(carry[0]).shape
+    zero = jnp.zeros((th, tw), jnp.float32)
+    refs = (FakeRef(np.asarray(tab, np.float32)),
+            FakeRef(np.asarray(kinds, np.int32).reshape(-1, 1)))
+    with jax.disable_jit():
+        if chunked is None:
+            out = jsk._sphere_bounce(*refs, zero, zero + 1.0,
+                                     _jax_carry(carry), n_spheres=n_spheres,
+                                     th=th, tw=tw, **flags)
+        else:
+            aabbs, order = chunked
+            out = jsk._sphere_bounce_chunked(
+                *refs, FakeRef(np.asarray(aabbs, np.float32)),
+                FakeRef(np.asarray(order, np.int32).reshape(-1, 1)), zero,
+                zero + 1.0, _jax_carry(carry), chunk=32,
+                n_chunks=np.asarray(aabbs).shape[0], th=th, tw=tw, **flags)
+        return _numpy_carry(out)
+
+
+def eager_sphere_kernel(tab, kinds, cam_row, time, *, n_spheres, height,
+                        width, hp, wp, th, tw, bounces, flags,
+                        normalize_defocus_dir=False, spp=1,
+                        sky_from_final_dir=False):
+    """The flat sphere ``_kernel`` (whole frame), tile by tile, eagerly.
+    Returns the (3, hp, wp) NumPy image."""
+    out = np.zeros((3, hp, wp), np.float32)
+    ids = [0, 0]
+    refs = (FakeRef(np.asarray(tab, np.float32)),
+            FakeRef(np.asarray(kinds, np.int32).reshape(-1, 1)),
+            FakeRef(cam_row),
+            FakeRef(np.asarray(time, np.uint32).reshape(1, 1)))
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jsk.pl, "program_id", lambda axis: ids[axis])
+        for i in range(hp // th):
+            for j in range(wp // tw):
+                ids[0], ids[1] = i, j
+                tile = FakeRef(np.zeros((3, th, tw), np.float32))
+                jsk._kernel(*refs, tile, n_spheres=n_spheres, height=height,
+                            width=width, th=th, tw=tw, bounces=bounces,
+                            normalize_defocus_dir=normalize_defocus_dir,
+                            sky_from_final_dir=sky_from_final_dir, spp=spp,
+                            **flags)
+                out[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = tile.a
+    return out

@@ -130,15 +130,28 @@ def test_convert_carries_scene_camera_and_state():
         convert.render_state_from_numpy(np.zeros((4, 6)), 0, device="cpu")
 
 
-@pytest.mark.parametrize("scene_id", [1, 2, 6, 7, 8])
-def test_unported_scene_ids_name_their_roadmap_item(scene_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        tscenes.build_scene(scene_id, 64, 32, device="cpu")
-
-
-@pytest.mark.parametrize("scene_id,name", [(3, "quad"), (4, "cube"),
-                                           (5, "suzanne")])
-def test_build_scene_ids(scene_id, name):
+@pytest.mark.parametrize("scene_id,name,kind", [
+    (1, "sphere_simple", "spheres"), (2, "sphere_globe", "spheres"),
+    (3, "quad", "triangles"), (4, "cube", "triangles"),
+    (5, "suzanne", "triangles"), (6, "lucy", "triangles"),
+    (7, "dragon", "triangles"), (8, "sphere_cover", "spheres"),
+    (0, "sphere_simple", "spheres"), (99, "sphere_simple", "spheres")])
+def test_build_scene_ids(scene_id, name, kind):
+    """All eight ids; an unknown id gives the default scene, as in the JAX
+    package."""
     sd = tscenes.build_scene(scene_id, 64, 32, device="cpu")
-    assert sd.name == name and sd.config.width == 64
+    assert sd.name == name and sd.kind == kind and sd.config.width == 64
+    assert sd.name == jscenes.build_scene(scene_id, 64, 32).name
     assert sd.with_resolution(16, 8).config.height == 8
+    assert sorted(tscenes.SCENE_BY_ID) == sorted(jscenes.SCENE_BY_ID)
+
+
+@pytest.mark.parametrize("name", ["lucy", "dragon"])
+def test_large_scene_fields_equal_jax(name):
+    jsd, tsd = both(name)
+    assert tsd.scene.m > 8192
+    for field, want in scene_fields(jsd.scene).items():
+        got = getattr(tsd.scene, field).numpy()
+        np.testing.assert_array_equal(got.astype(want.dtype), want,
+                                      err_msg=field)
+    assert tsd.config.mat_kinds == jsd.config.mat_kinds == (1,)
