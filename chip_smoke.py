@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from rt_torch/kernels/csrc, holds each of
-the five (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked)
-against its plain PyTorch version on the card at the shapes and in the
-stream states each path gives it, drives the port's paths
-(``rt_torch.measure.PATHS``) through ``build_scene -> ProgressiveRenderer ->
-draw_frames``:
+the eight (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
+tris_mono, tris_record, spheres_record) against its plain PyTorch version on
+the card at the shapes and in the stream states each path gives it, drives
+the port's render paths (``rt_torch.measure.PATHS``) through ``build_scene
+-> ProgressiveRenderer -> draw_frames``:
 
 - Suzanne 512x512, 8 bounces, 1 sample per pixel (wave_first, wave_bounce);
 - scene 1 (sphere_simple) 512x512, 10 bounces (spheres);
@@ -16,9 +16,18 @@ draw_frames``:
 - Suzanne 512x512, 8 bounces, 4 samples per pixel (wave_raygen, then
   wave_bounce from bounce 0);
 - scene 7 (dragon) 512x512, 5 bounces (the large-scene branch);
+- Suzanne 512x512, 8 bounces through the whole-frame kernel (tris_mono);
+
+its training paths (``rt_torch.measure.FITS``) through ``fit_replay``:
+
+- Suzanne 1920x1080 at the scene's own bounces, material 0 set to red, 40
+  Adam steps with one re-record (tris_record), the JAX package's BASELINE
+  config 5;
+- scene 1 512x512, 10 bounces, two albedos wrong, 20 steps with one
+  re-record (spheres_record);
 
 and checks the goldens of ``tests/golden_tris`` and ``tests/golden``
-(``rt_torch.goldens``).  Every
+(``rt_torch.goldens``), Suzanne through the whole-frame path too.  Every
 phase prints one JSON line; any failure raises, so the exit code is non-zero
 and no result line is printed.  Needs no network and starts no process that
 outlives it.
@@ -277,7 +286,10 @@ def compare_bounce_from_raygen(size: int, reps: int):
 def _require_bit_equal(records):
     for r in records:
         bad = [k for k in ("max_abs_err", "rays_differ", "flat_max_abs_err",
-                           "flat_rays_differ") if r.get(k, 0.0) != 0.0]
+                           "flat_rays_differ", "index_entries_differ",
+                           "color_differs_from_tris_mono",
+                           "color_differs_from_spheres")
+               if r.get(k, 0.0) != 0.0]
         if bad:
             raise SystemExit(f"kernel {r['name']} disagrees with its plain "
                              f"version ({bad}): {r}")
@@ -385,6 +397,156 @@ def compare_spheres(make_scene, width: int, height: int, spp: int,
     return rec
 
 
+def _frame_record(name, source, replaces, sd, width, height, th, tw, k_out,
+                  p_out, plain_ms, **more):
+    err, frac = _diff(k_out, p_out)
+    return dict(name=name, route="cuda",
+                source=f"rt_torch/kernels/csrc/{source}", replaces=replaces,
+                case=sd.name, size=[width, height], tile=[th, tw],
+                max_abs_err=err, rays_differ=frac, plain_ms=plain_ms,
+                library_ms=None, **more)
+
+
+def _planes(*tensors):
+    """(C, Hp, Wp) outputs as the (C, n) planes ``_diff`` takes."""
+    return tuple(t.reshape(t.shape[0], -1) for t in tensors)
+
+
+def compare_mono(size: int, bounces: int, spp: int, reps: int):
+    """K7 on Suzanne at size x size against its plain version."""
+    sd = scenes.scene_suzanne(size, size, device=DEV)
+    packed = dispatch.pack_scene(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    th, tw = dispatch.DEFAULT_TILE
+    kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+              bounces=bounces, normalize_defocus_dir=True,
+              flags=dispatch.trace_flags(sd.config), th=th, tw=tw, spp=spp)
+    run = lambda: tris_kernel.render_color_tris(packed, cam_row, 1000, **kw)
+    k_out = run()
+    counts = []
+    p_out, plain_ms = _plain_timed(lambda: tris_kernel.render_color_tris_plain(
+        packed, cam_row, 1000, scan_counts=counts, **kw))
+    rec = _frame_record("tris_mono", "tris_mono.cu",
+                        "rt/kernels/tris_kernel.py:337", sd, size, size, th,
+                        tw, _planes(k_out), _planes(p_out), plain_ms,
+                        bounces=bounces, spp=spp, n_chunks=packed.n_chunks)
+    if reps:
+        rec["ms"] = _timed(lambda i: run(), reps)
+        n = size * size
+        nbytes = sum(t.numel() * 4 for t in (packed.tab, packed.mats,
+                                             packed.chunks)) \
+            + packed.n_chunks * 4 + 20 * 4 + 3 * n * 4
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+            counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
+    return rec
+
+
+def compare_tris_record(width: int, height: int, bounces: int, reps: int):
+    """K9 on Suzanne against its plain version, color and every index
+    plane, and its color against K7's on the same frame."""
+    sd = scenes.scene_suzanne(width, height, device=DEV)
+    packed = dispatch.pack_scene(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    th, tw = dispatch.DEFAULT_TILE
+    kw = dict(height=height, width=width, height_pad=height, width_pad=width,
+              bounces=bounces, normalize_defocus_dir=True,
+              flags=dispatch.trace_flags(sd.config), th=th, tw=tw)
+    run = lambda: tris_kernel.render_color_tris_record(packed, cam_row, 1000,
+                                                       **kw)
+    color, idx, _ = run()
+    mono_color = tris_kernel.render_color_tris(packed, cam_row, 1000, **kw)
+    counts = []
+    (p_color, p_idx, _), plain_ms = _plain_timed(
+        lambda: tris_kernel.render_color_tris_record_plain(
+            packed, cam_row, 1000, scan_counts=counts, **kw))
+    rec = _frame_record("tris_record", "tris_mono.cu",
+                        "rt/kernels/tris_kernel.py:1309", sd, width, height,
+                        th, tw, _planes(color, idx), _planes(p_color, p_idx),
+                        plain_ms, bounces=bounces,
+                        index_entries_differ=float(
+                            (idx != p_idx).float().mean()),
+                        color_differs_from_tris_mono=_diff(
+                            _planes(color), _planes(mono_color))[1])
+    if reps:
+        rec["ms"] = _timed(lambda i: run(), reps)
+        n = width * height
+        nbytes = sum(t.numel() * 4 for t in (packed.tab, packed.mats,
+                                             packed.chunks)) \
+            + packed.n_chunks * 4 + 20 * 4 + (3 + bounces) * n * 4
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+            counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
+    return rec
+
+
+def compare_spheres_record(make_scene, width: int, height: int, reps: int):
+    """K8 against its plain version, color and every index plane, and its
+    color against K5's (the kernel up to 128 rows, its plain version above:
+    the render dispatch scans no more than that flat)."""
+    sd = make_scene(width, height, device=DEV)
+    cfg = sd.config
+    tab, kinds, n = dispatch.pack_spheres_table(sd.scene)
+    if 0 < cfg.n_active_spheres < n:
+        n = cfg.n_active_spheres
+    cam_row = dispatch.pack_camera(sd.camera)
+    th, tw = dispatch.DEFAULT_TILE
+    kw = dict(n_spheres=n, height=height, width=width, height_pad=height,
+              width_pad=width, bounces=cfg.bounces,
+              normalize_defocus_dir=cfg.normalize_defocus_dir,
+              flags=dispatch.trace_flags(cfg))
+    run = lambda: sphere_kernel.render_color_spheres_record(
+        tab, kinds, cam_row, 1000, th=th, tw=tw, **kw)
+    color, idx = run()
+    counts = []
+    (p_color, p_idx), plain_ms = _plain_timed(
+        lambda: sphere_kernel.render_color_spheres_record_plain(
+            tab, kinds, cam_row, 1000, scan_counts=counts, **kw))
+    if n <= sphere_kernel.FLAT_MAX_SPHERES:
+        render = sphere_kernel.render_color_spheres(
+            tab, kinds, cam_row, 1000, th=th, tw=tw, **kw)
+    else:
+        render = sphere_kernel.render_color_spheres_plain(
+            tab, kinds, cam_row, 1000, **kw)
+    rec = _frame_record("spheres_record", "spheres.cu",
+                        "rt/kernels/sphere_kernel.py:529", sd, width, height,
+                        th, tw, _planes(color, idx), _planes(p_color, p_idx),
+                        plain_ms, n_spheres=n, bounces=cfg.bounces,
+                        index_entries_differ=float(
+                            (idx != p_idx).float().mean()),
+                        color_differs_from_spheres=_diff(
+                            _planes(color), _planes(render))[1])
+    if reps:
+        rec["wrapper_ms"] = _timed(lambda i: run(), reps)
+        rec["ms"] = _timed_graph(run, reps)
+        npix = width * height
+        nbytes = (tab.numel() + kinds.numel()) * 4 + 20 * 4 \
+            + (3 + cfg.bounces) * npix * 4
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+            counts, nbytes, per_pair=FLOPS_PER_SPHERE_PAIR,
+            extra_flops=npix * FLOPS_PER_RAYGEN)
+    return rec
+
+
+def phase_kernels_train():
+    """K7, K9, K8 against their plain versions at the shapes the whole-frame
+    path and the training paths give them (K9: the 1920x1080 frame of the
+    Suzanne fit at the scene's own 5 bounces, and 512x512 at 8); the
+    recorders' color against the render kernels'; limit bit-equal."""
+    records = [
+        compare_mono(KERNEL_SIZE, 8, 1, reps=10),
+        compare_mono(KERNEL_SIZE, 8, 4, reps=0),
+        compare_tris_record(1920, 1080, 5, reps=5),
+        compare_tris_record(KERNEL_SIZE, KERNEL_SIZE, 8, reps=0),
+        compare_spheres_record(scenes.scene_sphere_simple, 512, 512, reps=50),
+        compare_spheres_record(scenes.scene_sphere_cover, 256, 144, reps=0),
+    ]
+    say(phase="kernels", kernels=["tris_mono", "tris_record",
+                                  "spheres_record"],
+        limit="bit-equal: max_abs_err 0, no pixel and no index entry "
+              "differs; recorder color == render color", results=records)
+    _require_bit_equal(records)
+    return records
+
+
 def phase_kernels_new():
     """K4, K5, K6 against their plain versions at the shapes the render
     phase gives them, and K3 in the two stream states the second slice's
@@ -461,6 +623,25 @@ def phase_render():
     return launches
 
 
+def phase_train():
+    """Every path of ``measure.FITS`` through ``fit_replay``, with the
+    launch counts set to 0 just before the fit and read just after.
+    Returns the recorders' launches."""
+    launches = {}
+    for name, f in measure.FITS.items():
+        r = measure.run_fit(name)
+        records = -(-f.steps // f.rerecord_every)
+        ok = (r["losses_finite"] and r["last_loss"] < 0.1 * r["first_loss"]
+              and r["launches"][f.kernel] == records)
+        say(phase="train", ok=ok, expected_records=records, **r)
+        if not ok:
+            raise SystemExit(f"train {name}: a loss is not finite, the last "
+                             "loss is not below a tenth of the first, or the "
+                             f"recorder was not launched {records} times")
+        launches[f.kernel] = r["launches"][f.kernel]
+    return launches
+
+
 def phase_golden():
     """tests/golden_tris (the JAX oracle's images): 128x128, 8 frames from
     time 1000 (lucy, dragon: 96x96, 2 frames) under the 0.05 % bound (0.6 %
@@ -472,6 +653,9 @@ def phase_golden():
     for name, golden in goldens.ORACLE_GOLDENS.items():
         results[name] = goldens.oracle_diff_pct(name, DEV)
         bounds[name] = golden.bound_pct
+    results["suzanne through tris_mono"] = goldens.oracle_diff_pct(
+        "suzanne", DEV, "mono")
+    bounds["suzanne through tris_mono"] = goldens.ORACLE_BOUND_PCT
     for name, (_, bound) in goldens.REFERENCE_BOUNDS.items():
         results[name] = goldens.reference_diff_pct(
             name, goldens.REFERENCE_FRAMES, DEV)
@@ -490,10 +674,12 @@ def main():
     phase_build()
     phase_kernels(scenes.scene_suzanne, 128, (2, 1))
     launches = phase_render()
+    launches |= phase_train()
     # Suzanne: K3 fuses 2 bounces a launch, and 1 in the last
     records = phase_kernels(scenes.scene_suzanne, KERNEL_SIZE, (2, 1),
                             reps=10)
     records += phase_kernels_new()
+    records += phase_kernels_train()
     # dragon, the large-scene branch: 1563 chunks, morton key, 1 bounce a
     # launch.  The plain versions loop over every chunk and triangle in
     # Python, about half a minute each at this size

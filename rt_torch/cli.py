@@ -2,7 +2,7 @@
 
 Usage:
     python -m rt_torch.cli --scene 5 --frames N --size WxH -o out.ppm
-                           [--spp S] [--seed N] [--device cpu]
+                           [--spp S] [--seed N] [--device cpu] [--mono]
                            [--time-step MS] [--start-time T]
 
 Renders a scene (1 sphere_simple, 2 sphere_globe, 3 quad, 4 cube, 5 suzanne,
@@ -40,6 +40,9 @@ def parse_args(argv=None):
                    help="samples per pixel per frame (default 1): the same "
                         "primary ray traced again with the RNG state carried "
                         "across samples")
+    p.add_argument("--mono", action="store_true",
+                   help="triangle scenes: one whole-frame kernel launch per "
+                        "frame instead of the wavefront stream")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the randomised globe scene (scene 2)")
     return p.parse_args(argv)
@@ -56,6 +59,9 @@ def main(argv=None) -> int:
     if args.spp is not None:
         sd = dataclasses.replace(sd, config=dataclasses.replace(
             sd.config, samples_per_frame=args.spp))
+    if args.mono:
+        sd = dataclasses.replace(sd, config=dataclasses.replace(
+            sd.config, tris_path="mono"))
     spp = sd.config.samples_per_frame
     print(f"scene {args.scene} ({sd.name}), {w}x{h}, {args.frames} frames, "
           f"bounces={sd.config.bounces}, spp={spp}, device={args.device}",

@@ -33,6 +33,9 @@ class RenderConfig:
     CUDA device the hand-written Hopper kernels run; on the CPU their plain
     PyTorch versions do.  The two compute the same image bit for bit at the
     same ``tile``.
+    tris_path — ``"wave"`` (default: the sorted wavefront stream) or
+        ``"mono"`` (one whole-frame launch per frame, the counterpart of the
+        JAX package's ``backend="pallas_mono"``), for triangle scenes.
     tile — (th, tw) rays per tile: the unit of the tile-union chunk cull
         and of the per-tile chunk visit order.  One CUDA block traces one
         tile, so th*tw must be a multiple of 32 and at most 1024 there.
@@ -56,6 +59,7 @@ class RenderConfig:
     mat_kinds: tuple = (MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC)
     sky_from_final_dir: bool = False
     tile: tuple | None = None
+    tris_path: str = "wave"
 
     @staticmethod
     def for_spheres(width: int = 512, height: int = 512,

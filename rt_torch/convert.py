@@ -1,8 +1,10 @@
 """State carried across from the JAX package, as NumPy arrays.
 
 The inputs are the fields of the JAX ``TriangleScene`` / ``SphereArray`` /
-``Camera`` / ``RenderState`` after ``np.asarray`` on each; this module never sees a JAX
-type.  The tests use it so both packages compute on the same scene.
+``Camera`` / ``RenderState`` and of its parameter tuples (``SphereParams`` /
+``TriangleParams`` / ``CameraParams``) after ``np.asarray`` on each; this
+module never sees a JAX type.  The tests use it so both packages compute on
+the same scene and start a fit from the same state.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from rt_torch.core.camera import Camera
 from rt_torch.core.sphere import SphereArray
 from rt_torch.core.triangle import TriangleScene
+from rt_torch.grad.params import CameraParams, SphereParams, TriangleParams
 from rt_torch.render.renderer import RenderState
 
 _SCENE_DTYPES = {"a": np.float32, "b": np.float32, "c": np.float32,
@@ -62,3 +65,29 @@ def render_state_from_numpy(image, frame_count, device="cuda") -> RenderState:
         raise ValueError(f"image: need (H, W, 3), got {img.shape}")
     return RenderState(image=torch.from_numpy(img).to(device),
                        frame_count=int(frame_count) & 0xFFFFFFFF)
+
+
+def _params_from_numpy(cls, fields: dict, device):
+    """Leaf tensors that require a gradient for the fields that are set;
+    a field that is missing or None stays frozen."""
+    unknown = set(fields) - set(cls._fields)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no field {sorted(unknown)}")
+    leaf = lambda v: torch.from_numpy(
+        np.array(v, dtype=np.float32, order="C")).to(device).requires_grad_()
+    return cls(**{k: leaf(v) for k, v in fields.items() if v is not None})
+
+
+def sphere_params_from_numpy(fields: dict, device="cuda") -> SphereParams:
+    """fields: name -> array for the set fields of the JAX SphereParams."""
+    return _params_from_numpy(SphereParams, fields, device)
+
+
+def triangle_params_from_numpy(fields: dict,
+                               device="cuda") -> TriangleParams:
+    return _params_from_numpy(TriangleParams, fields, device)
+
+
+def camera_params_from_numpy(fields: dict, device="cuda") -> CameraParams:
+    """fields: every field of the JAX CameraParams."""
+    return _params_from_numpy(CameraParams, fields, device)

@@ -1,4 +1,5 @@
-"""The sphere-scene container — counterpart of ``rt/core/sphere.py:29-64``.
+"""The sphere-scene container and the differentiable single-sphere
+intersection — counterpart of ``rt/core/sphere.py:29-87``.
 
 The scene buffer is padded with zero rows to a static count (by default the
 reference's ``MAX_SPHERES``); the kernels scan only the live prefix
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from rt_torch.config import MAX_SPHERES
+from rt_torch.core import vecmath as vm
 
 
 class SphereArray(NamedTuple):
@@ -52,3 +54,22 @@ def pack_spheres(spheres, pad_to: int = MAX_SPHERES,
         kind[i] = k
     return SphereArray(*(torch.from_numpy(x).to(device)
                          for x in (center, radius, albedo, param, kind)))
+
+
+def intersect_sphere_t(origin, direction, center, radius):
+    """The near root ``t`` of rays against one sphere each (or one for all):
+    origin/direction (..., 3), center (3,) or (..., 3), radius scalar or
+    (...); -1 where the discriminant is negative.  Differentiable: the
+    square root is guarded so that the lanes with a non-positive
+    discriminant see sqrt(1) in the backward pass and not the infinite
+    derivative at 0, which would poison the geometry and camera cotangents
+    of lanes that are masked away (0 * inf)."""
+    oc = origin - center
+    a = vm.dot(direction, direction)
+    b = 2.0 * vm.dot(oc, direction)
+    c = vm.dot(oc, oc) - radius * radius
+    disc = b * b - 4.0 * a * c
+    pos = disc > 0.0
+    sq = torch.where(pos, vm.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    t = (-b - sq) / (2.0 * a)
+    return torch.where(disc < 0.0, -1.0, t)

@@ -102,3 +102,53 @@ def dot4(a, b):
 def normalize4(a):
     ln = sqrt(dot4(a, a))
     return (a[0] / ln, a[1] / ln, a[2] / ln, a[3] / ln)
+
+
+# ---------------------------------------------------------------------------
+# the same on (..., 3) or (..., 4) tensors — counterpart of
+# ``rt/core/vecmath.py``, for the differentiable replay graph
+# (``rt_torch/grad``).  Sums run left to right over the components, as the
+# tuple forms above do, so both forms give the same primary rays.
+# ---------------------------------------------------------------------------
+
+def dot(a, b):
+    p = a * b
+    out = p[..., 0]
+    for c in range(1, p.shape[-1]):
+        out = out + p[..., c]
+    return out
+
+
+def normalize(v):
+    """v / length(v), no zero guard (NaN on a zero vector)."""
+    return v / sqrt(dot(v, v))[..., None]
+
+
+def cross(a, b):
+    return torch.stack(cross3((a[..., 0], a[..., 1], a[..., 2]),
+                              (b[..., 0], b[..., 1], b[..., 2])), dim=-1)
+
+
+def reflect(v, n):
+    return v - (2.0 * dot(v, n))[..., None] * n
+
+
+def refract(uv, n, etai_over_etat):
+    """``refract3`` with both square roots guarded for the backward pass: a
+    ray exactly antiparallel to the normal makes the perpendicular part
+    zero, and grazing incidence on a unit direction makes ``1 - ln*ln``
+    zero; the root's derivative there is infinite and would poison the
+    cotangents even on lanes whose scatter output is masked away.  The
+    forward values are those of the unguarded form."""
+    cos_theta = torch.clamp(dot(-uv, n), max=1.0)
+    perp = etai_over_etat[..., None] * (uv + cos_theta[..., None] * n)
+    lnsq = dot(perp, perp)
+    pos = lnsq > 0.0
+    ln = torch.where(pos, sqrt(torch.where(pos, lnsq, 1.0)), 0.0)
+    x = 1.0 - ln * ln
+    nz = x != 0.0
+    sq = torch.where(nz, sqrt(torch.abs(torch.where(nz, x, 1.0))), 0.0)
+    return perp - sq[..., None] * n
+
+
+schlick_reflectance = schlick

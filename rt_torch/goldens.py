@@ -14,6 +14,7 @@ Two folders of PPM images under ``tests/``:
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple
 
@@ -86,9 +87,12 @@ def diff_pct(sd, frames: int, folder: str, name: str, device) -> float:
         return compare_ppm(render_ppm(r.image), f.read(), 100.0)[1]
 
 
-def oracle_diff_pct(name: str, device) -> float:
+def oracle_diff_pct(name: str, device, tris_path: str = "wave") -> float:
+    """tris_path: the triangle path the frames take (``RenderConfig``)."""
     g = ORACLE_GOLDENS[name]
     sd = getattr(scenes, g.make_scene)(g.size, g.size, device=device)
+    sd = dataclasses.replace(sd, config=dataclasses.replace(
+        sd.config, tris_path=tris_path))
     return diff_pct(sd, g.frames, "golden_tris", name, device)
 
 

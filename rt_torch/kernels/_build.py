@@ -42,10 +42,14 @@ _SIGNATURES = {
                            + [_PTR]),
     },
     "spheres": {
-        "rt_spheres": ([_PTR] * 3 + [ctypes.c_uint] + [_PTR] + [_INT] * 14
-                       + [_PTR]),
+        "rt_spheres": ([_PTR] * 3 + [ctypes.c_uint] + [_PTR] * 2
+                       + [_INT] * 14 + [_PTR]),
         "rt_spheres_chunked": ([_PTR] * 5 + [ctypes.c_uint] + [_PTR]
                                + [_INT] * 15 + [_PTR]),
+    },
+    "tris_mono": {
+        "rt_tris_mono": ([_PTR] * 5 + [ctypes.c_uint, _INT] + [_PTR] * 2
+                         + [_INT] * 16 + [_PTR]),
     },
 }
 

@@ -227,4 +227,77 @@ __device__ __forceinline__ Vec3 sky_times_atten(float dy, Vec3 atten) {
             atten.z * (0.92f * u + 0.98f * t)};
 }
 
+// ---- whole-frame kernels ----------------------------------------------------
+// One launch traces a frame: one thread owns one pixel of a (th, tw) tile,
+// grid (Wp/tw, Hp/th), block th*tw.
+
+// What a frame's launch needs besides the tables.
+struct Frame {
+    CameraRow cam;
+    uint32_t time;
+    int row0;  // global row of the launch's first row (seed and uv math)
+    int height, width, height_pad, width_pad, tw;
+    int bounces, spp;
+    int normalize_defocus_dir, sky_from_final_dir;
+    ScatterFlags flags;
+};
+
+struct Pixel {
+    int row, col;
+    uint32_t state;  // RNG state, carried across samples
+    Vec3 o, d;       // the primary ray, traced anew by every sample
+};
+
+__device__ __forceinline__ Pixel primary_ray(const Frame& f) {
+    Pixel p;
+    const int th = blockDim.x / f.tw;
+    p.row = blockIdx.y * th + threadIdx.x / f.tw;
+    p.col = blockIdx.x * f.tw + threadIdx.x % f.tw;
+    generate_ray(f.cam, (uint32_t)p.col, (uint32_t)(p.row + f.row0), f.height,
+                 f.width, f.time, f.normalize_defocus_dir != 0, p.state, p.o,
+                 p.d);
+    return p;
+}
+
+__device__ __forceinline__ void store_color(const Frame& f, const Pixel& p,
+                                            Vec3 acc, float* out) {
+    if (f.spp > 1) {
+        // a true divide: x / 3 and x * (1/3) round differently
+        float n = (float)f.spp;
+        acc = {acc.x / n, acc.y / n, acc.z / n};
+    }
+    const size_t plane = (size_t)f.height_pad * f.width_pad;
+    const size_t i = (size_t)p.row * f.width_pad + p.col;
+    out[0 * plane + i] = acc.x;
+    out[1 * plane + i] = acc.y;
+    out[2 * plane + i] = acc.z;
+}
+
+__device__ __forceinline__ Vec3 sample_color(const Frame& f, const Pixel& p,
+                                             const Ray& r) {
+    return sky_times_atten(f.sky_from_final_dir ? r.d.y : p.d.y, r.atten);
+}
+
+inline Frame make_frame(const float* cam, uint32_t time, int row0, int height,
+                        int width, int height_pad, int width_pad, int tw,
+                        int bounces, int spp, int normalize_defocus_dir,
+                        int normalize_reflect_in, int has_metal,
+                        int has_dielectric, int sky_from_final_dir) {
+    Frame f;
+    for (int c = 0; c < 20; ++c) f.cam.v[c] = cam[c];
+    f.time = time;
+    f.row0 = row0;
+    f.height = height;
+    f.width = width;
+    f.height_pad = height_pad;
+    f.width_pad = width_pad;
+    f.tw = tw;
+    f.bounces = bounces;
+    f.spp = spp;
+    f.normalize_defocus_dir = normalize_defocus_dir;
+    f.sky_from_final_dir = sky_from_final_dir;
+    f.flags = {normalize_reflect_in, has_metal, has_dielectric};
+    return f;
+}
+
 }  // namespace rt

@@ -1,9 +1,14 @@
 // Fused sphere path-trace kernels for Hopper (sm_90a).
 //
-//   spheres_kernel          replaces rt/kernels/sphere_kernel.py:_kernel
-//                           (whole frame for at most 128 spheres: raygen,
-//                           sample loop, bounce loop, flat closest-hit scan,
+//   spheres_kernel<false>   replaces rt/kernels/sphere_kernel.py:_kernel
+//                           (whole frame, flat scan: raygen, sample loop,
+//                           bounce loop, closest-hit scan over every row,
 //                           scatter, sky, divide by the sample count)
+//   spheres_kernel<true>    replaces
+//                           rt/kernels/sphere_kernel.py:_kernel_record
+//                           (the same at one sample per pixel, and the
+//                           winning row of every bounce, -1 on a miss, for
+//                           the path-replay gradients)
 //   spheres_chunked_kernel  replaces
 //                           rt/kernels/sphere_kernel.py:_kernel_chunked
 //                           (the same for larger scenes: the table in Morton
@@ -20,11 +25,15 @@
 // hit because `t < best` is strict and the rows are scanned in the same
 // ascending order.
 //
-// Flat kernel: the table and the kinds are staged in shared memory (at most
-// 128 rows x 9 words) and every thread reads the same row at the same time,
-// a broadcast.  A ray that misses stops: a dead ray passes through a bounce
+// Flat kernel: the table and the kinds are staged in dynamic shared memory
+// (9 words a row, sized by the launch; at most 1024 rows, which stays under
+// the 48 KB a block gets without opting in to more; a launch with more rows
+// is refused) and every thread reads the same row at the same time, a
+// broadcast.  A ray that misses stops: a dead ray passes through a bounce
 // unchanged in the TPU kernel, whose whole-tile early exit only skips work,
-// so the image does not depend on the tile.
+// so the image does not depend on the tile.  The recorder then fills the
+// index planes of the bounces it did not run with -1; the TPU recorder runs
+// every bounce and its dead lanes write the same -1.
 //
 // Chunked kernel: one block is one (th, tw) pixel tile, and the tile is the
 // unit of the chunk cull, as in the TPU kernel: each thread tests the
@@ -50,17 +59,7 @@
 namespace rt {
 
 constexpr int SPH_COLS = 8;  // centre(3) radius albedo(3) material parameter
-constexpr int FLAT_MAX_SPHERES = 128;
-
-// What a frame's launch needs besides the tables.
-struct Frame {
-    CameraRow cam;
-    uint32_t time;
-    int height, width, height_pad, width_pad, tw;
-    int bounces, spp;
-    int normalize_defocus_dir, sky_from_final_dir;
-    ScatterFlags flags;
-};
+constexpr int MAX_STAGED_SPHERES = 1024;  // rows the flat kernels stage
 
 struct Quadratic {
     Vec3 o, d;
@@ -113,47 +112,17 @@ __device__ __forceinline__ void resolve_hit(const float* row, int kind,
                r.atten.z * albedo.z * 0.7f};
 }
 
-struct Pixel {
-    int row, col;
-    uint32_t state;  // RNG state, carried across samples
-    Vec3 o, d;       // the primary ray, traced anew by every sample
-};
-
-__device__ __forceinline__ Pixel primary_ray(const Frame& f) {
-    Pixel p;
-    const int th = blockDim.x / f.tw;
-    p.row = blockIdx.y * th + threadIdx.x / f.tw;
-    p.col = blockIdx.x * f.tw + threadIdx.x % f.tw;
-    generate_ray(f.cam, (uint32_t)p.col, (uint32_t)p.row, f.height, f.width,
-                 f.time, f.normalize_defocus_dir != 0, p.state, p.o, p.d);
-    return p;
-}
-
-__device__ __forceinline__ void store_color(const Frame& f, const Pixel& p,
-                                            Vec3 acc, float* out) {
-    if (f.spp > 1) {
-        // a true divide: x / 3 and x * (1/3) round differently
-        float n = (float)f.spp;
-        acc = {acc.x / n, acc.y / n, acc.z / n};
-    }
-    const size_t plane = (size_t)f.height_pad * f.width_pad;
-    const size_t i = (size_t)p.row * f.width_pad + p.col;
-    out[0 * plane + i] = acc.x;
-    out[1 * plane + i] = acc.y;
-    out[2 * plane + i] = acc.z;
-}
-
-__device__ __forceinline__ Vec3 sample_color(const Frame& f, const Pixel& p,
-                                             const Ray& r) {
-    return sky_times_atten(f.sky_from_final_dir ? r.d.y : p.d.y, r.atten);
-}
-
-// grid (Wp/tw, Hp/th), block th*tw.  out is (3, Hp, Wp).
+// grid (Wp/tw, Hp/th), block th*tw.  out is (3, Hp, Wp).  Dynamic shared
+// memory: n_spheres rows of SPH_COLS floats, then n_spheres kinds.
+// RECORD: idx is (bounces, Hp, Wp) and gets the winning row of every bounce,
+// -1 from the thread's miss on (the launch is made with spp 1).
+template <bool RECORD>
 __global__ void spheres_kernel(const float* __restrict__ tab,
                                const int* __restrict__ kinds, int n_spheres,
-                               Frame f, float* __restrict__ out) {
-    __shared__ float s_tab[FLAT_MAX_SPHERES * SPH_COLS];
-    __shared__ int s_kind[FLAT_MAX_SPHERES];
+                               Frame f, float* __restrict__ out,
+                               int* __restrict__ idx) {
+    extern __shared__ float s_tab[];
+    int* s_kind = reinterpret_cast<int*>(s_tab + n_spheres * SPH_COLS);
     for (int i = threadIdx.x; i < n_spheres * SPH_COLS; i += blockDim.x)
         s_tab[i] = tab[i];
     for (int i = threadIdx.x; i < n_spheres; i += blockDim.x)
@@ -161,19 +130,26 @@ __global__ void spheres_kernel(const float* __restrict__ tab,
     __syncthreads();
 
     Pixel p = primary_ray(f);
+    const size_t plane = (size_t)f.height_pad * f.width_pad;
+    const size_t pix = (size_t)p.row * f.width_pad + p.col;
     Vec3 acc = {0.0f, 0.0f, 0.0f};
     for (int s = 0; s < f.spp; ++s) {
         Ray r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
-        for (int b = 0; b < f.bounces; ++b) {
+        int b = 0;
+        for (; b < f.bounces; ++b) {
             const Quadratic q = hoist(r);
             float bt = FLT_MAX_WGSL;
             int bidx = -1;
             for (int si = 0; si < n_spheres; ++si)
                 scan_sphere(s_tab + si * SPH_COLS, si, q, bt, bidx);
             if (bt == FLT_MAX_WGSL) break;  // escaped to the sky
+            if (RECORD) idx[b * plane + pix] = bidx;
             resolve_hit(s_tab + bidx * SPH_COLS, s_kind[bidx], f.flags, bt,
                         r);
         }
+        // the planes of the bounces the thread did not run
+        if (RECORD)
+            for (; b < f.bounces; ++b) idx[b * plane + pix] = -1;
         p.state = r.state;
         Vec3 col = sample_color(f, p, r);
         acc = f.spp > 1 ? add3(acc, col) : col;
@@ -238,48 +214,37 @@ __global__ void spheres_chunked_kernel(
     store_color(f, p, acc, out);
 }
 
-__host__ Frame make_frame(const float* cam, uint32_t time, int height,
-                          int width, int height_pad, int width_pad, int tw,
-                          int bounces, int spp, int normalize_defocus_dir,
-                          int normalize_reflect_in, int has_metal,
-                          int has_dielectric, int sky_from_final_dir) {
-    Frame f;
-    for (int c = 0; c < 20; ++c) f.cam.v[c] = cam[c];
-    f.time = time;
-    f.height = height;
-    f.width = width;
-    f.height_pad = height_pad;
-    f.width_pad = width_pad;
-    f.tw = tw;
-    f.bounces = bounces;
-    f.spp = spp;
-    f.normalize_defocus_dir = normalize_defocus_dir;
-    f.sky_from_final_dir = sky_from_final_dir;
-    f.flags = {normalize_reflect_in, has_metal, has_dielectric};
-    return f;
-}
-
 }  // namespace rt
 
 // ---- plain C interface (loaded with ctypes) ---------------------------------
 // Pointers are device pointers except ``cam`` (20 host floats).  Each function
 // launches on ``stream`` and returns cudaGetLastError() as an int.
 
+// out: (3, Hp, Wp) f32.  idx: (bounces, Hp, Wp) i32 for the recorder (which
+// is launched with spp 1), or null for the render kernel.
 extern "C" int rt_spheres(
         const float* tab, const int* kinds, const float* cam,
-        unsigned int time, float* out, int n_spheres, int height, int width,
-        int height_pad, int width_pad, int th, int tw, int bounces, int spp,
-        int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
-        int has_dielectric, int sky_from_final_dir, void* stream) {
-    if (n_spheres < 1 || n_spheres > rt::FLAT_MAX_SPHERES)
+        unsigned int time, float* out, int* idx, int n_spheres, int height,
+        int width, int height_pad, int width_pad, int th, int tw, int bounces,
+        int spp, int normalize_defocus_dir, int normalize_reflect_in,
+        int has_metal, int has_dielectric, int sky_from_final_dir,
+        void* stream) {
+    if (n_spheres < 1 || n_spheres > rt::MAX_STAGED_SPHERES)
         return (int)cudaErrorInvalidValue;
     rt::Frame f = rt::make_frame(
-        cam, time, height, width, height_pad, width_pad, tw, bounces, spp,
+        cam, time, 0, height, width, height_pad, width_pad, tw, bounces, spp,
         normalize_defocus_dir, normalize_reflect_in, has_metal,
         has_dielectric, sky_from_final_dir);
+    const size_t shared = (size_t)n_spheres * (rt::SPH_COLS + 1) * 4;
     dim3 grid(width_pad / tw, height_pad / th);
-    rt::spheres_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
-        tab, kinds, n_spheres, f, out);
+    if (idx)
+        rt::spheres_kernel<true><<<grid, th * tw, shared,
+                                   (cudaStream_t)stream>>>(
+            tab, kinds, n_spheres, f, out, idx);
+    else
+        rt::spheres_kernel<false><<<grid, th * tw, shared,
+                                    (cudaStream_t)stream>>>(
+            tab, kinds, n_spheres, f, out, nullptr);
     return (int)cudaGetLastError();
 }
 
@@ -291,7 +256,7 @@ extern "C" int rt_spheres_chunked(
         int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
         int has_dielectric, int sky_from_final_dir, void* stream) {
     rt::Frame f = rt::make_frame(
-        cam, time, height, width, height_pad, width_pad, tw, bounces, spp,
+        cam, time, 0, height, width, height_pad, width_pad, tw, bounces, spp,
         normalize_defocus_dir, normalize_reflect_in, has_metal,
         has_dielectric, sky_from_final_dir);
     dim3 grid(width_pad / tw, height_pad / th);

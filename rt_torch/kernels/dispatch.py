@@ -2,17 +2,17 @@
 pad the image to tile multiples, launch, crop — counterpart of
 ``rt/kernels/dispatch.py``: sphere scenes through the fused sphere kernels
 (flat up to 128 live spheres, chunk-culled above), triangle scenes through
-the wavefront path.
+the wavefront path or, with ``config.tris_path == "mono"``, through the
+whole-frame kernel.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from rt_torch.config import MAT_DIELECTRIC, MAT_METAL, RenderConfig
+from rt_torch.core.camera import tan_half_fov
 from rt_torch.core.sphere import SphereArray
 from rt_torch.core.triangle import TriangleScene
 from rt_torch.kernels import sphere_kernel, tris_kernel
@@ -31,9 +31,7 @@ def _round_up(v: int, m: int) -> int:
 
 def pack_camera(camera) -> np.ndarray:
     """(1, 20) f32 host row.  Slot CAM_TAN holds tan(fov * 0.5), evaluated
-    here and nowhere else: the f32 half angle's tangent in float64, rounded
-    to f32 (the correctly rounded value; NumPy's f32 tan is 1 ULP off it at
-    the scenes' fov of 0.3*pi, XLA's agrees with it there)."""
+    on the host (``core.camera.tan_half_fov``) and in no kernel."""
     row = np.zeros((1, CAM_WIDTH), np.float32)
     row[0, CAM_EYE:CAM_EYE + 4] = camera.eye
     row[0, CAM_DIR:CAM_DIR + 4] = camera.direction
@@ -42,8 +40,7 @@ def pack_camera(camera) -> np.ndarray:
     row[0, CAM_FL] = camera.focal_length
     row[0, CAM_BLUR] = camera.focal_blur
     row[0, CAM_FOV] = camera.fov
-    half = np.float32(camera.fov) * np.float32(0.5)
-    row[0, CAM_TAN] = np.float32(math.tan(float(half)))
+    row[0, CAM_TAN] = tan_half_fov(camera.fov)
     return row
 
 
@@ -107,7 +104,7 @@ def pack_scene(scene, config: RenderConfig | None = None):
     raise TypeError(f"unknown scene type {type(scene)}")
 
 
-def _check_device(tab: torch.Tensor, device) -> None:
+def check_device(tab: torch.Tensor, device) -> None:
     device = torch.device(device)
     if tab.device.type != device.type:
         raise ValueError(f"scene lies on {tab.device}, asked to render on "
@@ -123,7 +120,7 @@ def render_color_frames(scene, camera, config: RenderConfig, times,
         scene = pack_scene(scene)
     elif not isinstance(scene, tris_kernel.PackedScene):
         raise TypeError(f"unknown scene type {type(scene)}")
-    _check_device(scene.tab, device)
+    check_device(scene.tab, device)
     h, w = config.height, config.width
     kw = wave_params(scene, config)
     hp, wp = _round_up(h, kw["th"]), _round_up(w, kw["tw"])
@@ -140,22 +137,35 @@ def render_color_frames(scene, camera, config: RenderConfig, times,
     return colors
 
 
+def frame_geometry(config: RenderConfig) -> dict:
+    """The real and the tile-padded extent and the tile of a whole-frame
+    launch."""
+    th, tw = config.tile or DEFAULT_TILE
+    return dict(height=config.height, width=config.width,
+                height_pad=_round_up(config.height, th),
+                width_pad=_round_up(config.width, tw), th=th, tw=tw)
+
+
+def _crop(color, config: RenderConfig):
+    """(C, Hp, Wp) planes -> (H, W, C)."""
+    color = color.permute(1, 2, 0)
+    if color.shape[:2] != (config.height, config.width):
+        color = color[:config.height, :config.width]
+    return color
+
+
 def render_color_spheres(scene, camera, config: RenderConfig, time,
                          device="cuda"):
     """(H, W, 3) color for one frame of a sphere scene, one kernel launch.
     scene: a SphereArray or its PackedSpheres."""
     if isinstance(scene, SphereArray):
         scene = pack_scene(scene, config)
-    _check_device(scene.tab, device)
-    h, w = config.height, config.width
-    th, tw = config.tile or DEFAULT_TILE
-    hp, wp = _round_up(h, th), _round_up(w, tw)
-    kw = dict(height=h, width=w, height_pad=hp, width_pad=wp,
-              bounces=config.bounces,
+    check_device(scene.tab, device)
+    kw = dict(bounces=config.bounces,
               normalize_defocus_dir=config.normalize_defocus_dir,
-              flags=trace_flags(config), th=th, tw=tw,
+              flags=trace_flags(config),
               sky_from_final_dir=config.sky_from_final_dir,
-              spp=config.samples_per_frame)
+              spp=config.samples_per_frame, **frame_geometry(config))
     cam_row = pack_camera(camera)
     if scene.chunks is None:
         color = sphere_kernel.render_color_spheres(
@@ -164,10 +174,23 @@ def render_color_spheres(scene, camera, config: RenderConfig, time,
     else:
         color = sphere_kernel.render_color_spheres_chunked(
             scene, cam_row, int(time), **kw)
-    color = color.permute(1, 2, 0)                      # (Hp, Wp, 3)
-    if (hp, wp) != (h, w):
-        color = color[:h, :w]
-    return color
+    return _crop(color, config)
+
+
+def render_color_tris_mono(scene, camera, config: RenderConfig, time,
+                           device="cuda"):
+    """(H, W, 3) color for one frame of a triangle scene in one launch of
+    the whole-frame kernel.  scene: a TriangleScene or its PackedScene."""
+    if isinstance(scene, TriangleScene):
+        scene = pack_scene(scene)
+    check_device(scene.tab, device)
+    color = tris_kernel.render_color_tris(
+        scene, pack_camera(camera), int(time), bounces=config.bounces,
+        normalize_defocus_dir=config.normalize_defocus_dir,
+        flags=trace_flags(config),
+        sky_from_final_dir=config.sky_from_final_dir,
+        spp=config.samples_per_frame, **frame_geometry(config))
+    return _crop(color, config)
 
 
 def render_color(scene, camera, config: RenderConfig, time, device="cuda"):
@@ -175,11 +198,15 @@ def render_color(scene, camera, config: RenderConfig, time, device="cuda"):
     TriangleScene, or what ``pack_scene`` made of one."""
     if isinstance(scene, (SphereArray, sphere_kernel.PackedSpheres)):
         return render_color_spheres(scene, camera, config, time, device)
+    if config.tris_path == "mono":
+        return render_color_tris_mono(scene, camera, config, time, device)
+    if config.tris_path != "wave":
+        raise ValueError(f"tris_path {config.tris_path!r}: wave or mono")
     return render_color_frames(scene, camera, config, [int(time)], device)[0]
 
 
 def launch_counts() -> dict:
-    """Kernel launches so far, by wrapper name (all five kernels)."""
+    """Kernel launches so far, by wrapper name (every kernel)."""
     return tris_kernel.LAUNCHES | sphere_kernel.LAUNCHES
 
 

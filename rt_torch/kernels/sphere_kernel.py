@@ -1,14 +1,17 @@
 """The fused sphere path — counterpart of ``rt/kernels/sphere_kernel.py``
-(``_sphere_bounce``, ``_kernel``, ``pack_spheres_chunked``,
-``_sphere_bounce_chunked``, ``_kernel_chunked``).
+(``_sphere_bounce``, ``_kernel``, ``_kernel_record``,
+``pack_spheres_chunked``, ``_sphere_bounce_chunked``, ``_kernel_chunked``).
 
-Two kernels, each a hand-written CUDA kernel (``csrc/spheres.cu``) with a
+Three kernels, each a hand-written CUDA kernel (``csrc/spheres.cu``) with a
 plain PyTorch version beside it; one launch traces a whole frame — raygen,
 the sample loop, the bounce loop, the closest-hit scan, scatter, sky and the
 divide by the sample count:
 
 - ``render_color_spheres`` — flat scan over the first ``n_spheres`` rows of
   the table in ascending order (at most ``FLAT_MAX_SPHERES`` rows);
+- ``render_color_spheres_record`` — the same scan at one sample per pixel
+  that also returns the winning row of every bounce (counterpart of
+  ``_kernel_record``), for the path-replay gradients;
 - ``render_color_spheres_chunked`` — for larger scenes: the table in Morton
   order in chunks of 32 with one box each, visited front to back from the
   eye; a (th, tw) pixel tile scans a chunk only if one of its live rays
@@ -41,12 +44,13 @@ from rt_torch.kernels.tris_kernel import (TraceFlags, _cam_array,
 
 SPH_COLS = 8      # centre(3), radius, albedo(3), material parameter
 CHUNK = 32        # spheres per chunk
-FLAT_MAX_SPHERES = 128   # rows the flat kernel stages in shared memory
+FLAT_MAX_SPHERES = 128   # the render dispatch goes chunked above this
+MAX_STAGED_SPHERES = 1024   # rows the flat kernels stage in shared memory
 PAD_RADIUS = -1e30       # a padding row: r*r = +inf, t = -inf, never a hit
 
 _FLT_MAX = float(np.float32(FLT_MAX))
 
-LAUNCHES = {"spheres": 0, "spheres_chunked": 0}
+LAUNCHES = {"spheres": 0, "spheres_chunked": 0, "spheres_record": 0}
 
 
 class PackedSpheres(NamedTuple):
@@ -160,12 +164,14 @@ def _hoisted(d):
 
 
 def sphere_bounce(tab, kinds, carry, flags: TraceFlags, *, n_spheres: int,
-                  scan_counts=None):
+                  scan_counts=None, track_idx: bool = False):
     """One bounce: flat closest-hit scan over rows 0..n_spheres-1, scatter.
 
     carry: (state int64, o3, d3, atten3, active int32), same-shaped tensors.
-    Returns the new carry.  scan_counts: optional list; gets the number of
-    (live ray, sphere) pairs appended — a dead ray's scan is discarded.
+    Returns the new carry; with ``track_idx`` also the winning row (int32,
+    -1 on a miss or a dead ray).  scan_counts: optional list; gets the
+    number of (live ray, sphere) pairs appended — a dead ray's scan is
+    discarded.
     """
     state, o, d, atten, active = carry
     two_a, four_a = _hoisted(d)
@@ -174,7 +180,11 @@ def sphere_bounce(tab, kinds, carry, flags: TraceFlags, *, n_spheres: int,
     bt, bidx = _scan_rows(tab, 0, n_spheres, o, d, two_a, four_a, bt, bidx)
     if scan_counts is not None:
         scan_counts.append([int((active > 0).sum()) * n_spheres, 0])
-    return _resolve_and_scatter(tab, kinds, carry, bt, bidx, flags)
+    out = _resolve_and_scatter(tab, kinds, carry, bt, bidx, flags)
+    if track_idx:
+        won = torch.where(out[4] > 0, bidx, torch.full_like(bidx, -1))
+        return out + (won.to(torch.int32),)
+    return out
 
 
 def sphere_bounce_chunked(packed: PackedSpheres, order, carry,
@@ -239,35 +249,6 @@ def _primary_rays(cam_row, time: int, dev, **geometry):
             d[1][0])
 
 
-def _sample_loop(bounce, state, o, d0, primary_dy, *, bounces: int, spp: int,
-                 sky_from_final_dir: bool):
-    """The sample loop of one frame: the same primary ray traced ``spp``
-    times with the RNG state carried across samples, then a true divide.
-    bounce: carry -> carry.  A dead ray passes through a bounce unchanged,
-    so the kernels' early exits (a thread at its own miss, a block when all
-    its rays are dead) only skip work, and so does the ``break`` here."""
-    one = torch.ones_like(o[0])
-    zero = torch.zeros_like(o[0])
-    acc = (zero, zero, zero)
-    for _ in range(spp):
-        carry = (state, o, d0, (one, one, one),
-                 torch.ones_like(state, dtype=torch.int32))
-        for _ in range(bounces):
-            if not bool((carry[4] > 0).any()):
-                break
-            carry = bounce(carry)
-        state, _, d, atten, _ = carry
-        col = tc.sky_times_atten(d[1] if sky_from_final_dir else primary_dy,
-                                 atten)
-        acc = vm.add3(acc, col) if spp > 1 else col
-    if spp > 1:
-        # a tensor divisor: CUDA division by a Python scalar multiplies by
-        # its reciprocal, which is not the IEEE quotient
-        n = torch.tensor(float(spp), dtype=torch.float32, device=o[0].device)
-        acc = (acc[0] / n, acc[1] / n, acc[2] / n)
-    return acc
-
-
 def render_color_spheres_plain(tab, kinds, cam_row, time: int, *,
                                n_spheres: int, height: int, width: int,
                                height_pad: int, width_pad: int, bounces: int,
@@ -280,12 +261,39 @@ def render_color_spheres_plain(tab, kinds, cam_row, time: int, *,
         cam_row, time, tab.device, height=height, width=width,
         height_pad=height_pad, width_pad=width_pad,
         normalize_defocus_dir=normalize_defocus_dir)
-    col = _sample_loop(
+    col = tc.sample_loop(
         lambda c: sphere_bounce(tab, kinds, c, flags, n_spheres=n_spheres,
                                 scan_counts=scan_counts),
         state, o, d0, pdy, bounces=bounces, spp=spp,
         sky_from_final_dir=sky_from_final_dir)
     return torch.stack(col)
+
+
+def render_color_spheres_record_plain(tab, kinds, cam_row, time: int, *,
+                                      n_spheres: int, height: int,
+                                      width: int, height_pad: int,
+                                      width_pad: int, bounces: int,
+                                      normalize_defocus_dir: bool,
+                                      flags: TraceFlags,
+                                      sky_from_final_dir: bool = False,
+                                      scan_counts=None):
+    """Plain version of ``render_color_spheres_record``."""
+    state, o, d0, pdy = _primary_rays(
+        cam_row, time, tab.device, height=height, width=width,
+        height_pad=height_pad, width_pad=width_pad,
+        normalize_defocus_dir=normalize_defocus_dir)
+    planes = []
+
+    def bounce(carry):
+        *carry, won = sphere_bounce(tab, kinds, carry, flags,
+                                    n_spheres=n_spheres,
+                                    scan_counts=scan_counts, track_idx=True)
+        planes.append(won)
+        return tuple(carry)
+
+    col = tc.sample_loop(bounce, state, o, d0, pdy, bounces=bounces, spp=1,
+                         sky_from_final_dir=sky_from_final_dir)
+    return torch.stack(col), tc.index_planes(planes, bounces, state)
 
 
 def render_color_spheres_chunked_plain(packed: PackedSpheres, cam_row,
@@ -314,7 +322,7 @@ def render_color_spheres_chunked_plain(packed: PackedSpheres, cam_row,
         height_pad=height_pad, width_pad=width_pad,
         normalize_defocus_dir=normalize_defocus_dir)
     order = eye_chunk_order(packed, cam_row)
-    col = _sample_loop(
+    col = tc.sample_loop(
         lambda c: sphere_bounce_chunked(packed, order, c, flags,
                                         scan_counts=scan_counts),
         tiled(state), tuple(tiled(c) for c in o),
@@ -337,52 +345,83 @@ def eye_chunk_order(packed: PackedSpheres, cam_row) -> torch.Tensor:
 # wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def render_color_spheres(tab, kinds, cam_row, time: int, *, n_spheres: int,
-                         height: int, width: int, height_pad: int,
-                         width_pad: int, bounces: int,
-                         normalize_defocus_dir: bool, flags: TraceFlags,
-                         th: int, tw: int, sky_from_final_dir: bool = False,
-                         spp: int = 1):
-    """Planar (3, Hp, Wp) color of one frame: flat scan over the first
-    ``n_spheres`` rows of ``tab``.
-
-    tab: (N, 8) f32.  kinds: (N,) int32.  cam_row: (1, 20) f32 on the host.
-    time: the u32 time uniform.  height/width: the real resolution (seed
-    and uv math); height_pad/width_pad: the traced extent, a multiple of
-    (th, tw), one CUDA block per tile.  The result does not depend on the
-    tile: no ray reads another's state.
-    """
-    if tab.device.type == "cpu":
-        return render_color_spheres_plain(
-            tab, kinds, cam_row, time, n_spheres=n_spheres, height=height,
-            width=width, height_pad=height_pad, width_pad=width_pad,
-            bounces=bounces, normalize_defocus_dir=normalize_defocus_dir,
-            flags=flags, sky_from_final_dir=sky_from_final_dir, spp=spp)
+def _launch_flat(name: str, max_rows: int, tab, kinds, cam_row, time: int,
+                 *, n_spheres: int, height: int, width: int, height_pad: int,
+                 width_pad: int, bounces: int, normalize_defocus_dir: bool,
+                 flags: TraceFlags, th: int, tw: int,
+                 sky_from_final_dir: bool, spp: int):
+    """One launch of the flat kernel; ``name`` says which: ``"spheres"``
+    returns the color, ``"spheres_record"`` (color, index planes)."""
     from rt_torch.kernels import _build
 
     _check_tile(th, tw, height_pad, width_pad)
     _check_block(th, tw)
-    if not 0 < n_spheres <= min(FLAT_MAX_SPHERES, tab.shape[0]):
-        raise ValueError(f"n_spheres={n_spheres}: the flat kernel scans 1 to "
-                         f"{FLAT_MAX_SPHERES} rows of a {tab.shape[0]}-row "
-                         "table")
+    if not 0 < n_spheres <= min(max_rows, tab.shape[0]):
+        raise ValueError(f"n_spheres={n_spheres}: the {name} kernel scans 1 "
+                         f"to {max_rows} rows of a {tab.shape[0]}-row table")
     _require(tab, "tab", torch.float32, (tab.shape[0], SPH_COLS))
     _require(kinds, "kinds", torch.int32, (tab.shape[0],))
     cam = _cam_array(cam_row)
     out = torch.empty((3, height_pad, width_pad), dtype=torch.float32,
                       device=tab.device)
+    idx = None
+    if name == "spheres_record":
+        idx = torch.empty((bounces, height_pad, width_pad),
+                          dtype=torch.int32, device=tab.device)
     lib = _build.load()
     code = lib.rt_spheres(
         tab.data_ptr(), kinds.data_ptr(), cam.ctypes.data,
-        int(time) & rng.MASK, out.data_ptr(), n_spheres, height, width,
+        int(time) & rng.MASK, out.data_ptr(),
+        None if idx is None else idx.data_ptr(), n_spheres, height, width,
         height_pad, width_pad, th, tw, bounces, spp,
         int(normalize_defocus_dir), int(flags.normalize_reflect_in),
         int(flags.has_metal), int(flags.has_dielectric),
         int(sky_from_final_dir),
         torch.cuda.current_stream(tab.device).cuda_stream)
-    _build.check(lib, code, "spheres")
-    LAUNCHES["spheres"] += 1
-    return out
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return out if idx is None else (out, idx)
+
+
+def render_color_spheres(tab, kinds, cam_row, time: int, *, flags: TraceFlags,
+                         th: int, tw: int, sky_from_final_dir: bool = False,
+                         spp: int = 1, **kw):
+    """Planar (3, Hp, Wp) color of one frame: flat scan over the first
+    ``n_spheres`` rows of ``tab`` (at most ``FLAT_MAX_SPHERES``).
+
+    tab: (N, 8) f32.  kinds: (N,) int32.  cam_row: (1, 20) f32 on the host.
+    time: the u32 time uniform.  kw: n_spheres; height, width: the real
+    resolution (seed and uv math); height_pad, width_pad: the traced extent,
+    a multiple of (th, tw), one CUDA block per tile; bounces;
+    normalize_defocus_dir.  The result does not depend on the tile: no ray
+    reads another's state.
+    """
+    if tab.device.type == "cpu":
+        return render_color_spheres_plain(
+            tab, kinds, cam_row, time, flags=flags,
+            sky_from_final_dir=sky_from_final_dir, spp=spp, **kw)
+    return _launch_flat("spheres", FLAT_MAX_SPHERES, tab, kinds, cam_row,
+                        time, flags=flags, th=th, tw=tw,
+                        sky_from_final_dir=sky_from_final_dir, spp=spp, **kw)
+
+
+def render_color_spheres_record(tab, kinds, cam_row, time: int, *,
+                                flags: TraceFlags, th: int, tw: int,
+                                sky_from_final_dir: bool = False, **kw):
+    """(color (3, Hp, Wp) f32, hit indices (bounces, Hp, Wp) int32): the
+    frame of ``render_color_spheres`` at one sample per pixel, and per
+    bounce the table row each pixel's ray hit, -1 on a miss and from then
+    on — what the path-replay gradients consume.  The flat scan whatever
+    the sphere count, up to ``MAX_STAGED_SPHERES`` rows on the card.
+    kw: as for ``render_color_spheres``.
+    """
+    if tab.device.type == "cpu":
+        return render_color_spheres_record_plain(
+            tab, kinds, cam_row, time, flags=flags,
+            sky_from_final_dir=sky_from_final_dir, **kw)
+    return _launch_flat("spheres_record", MAX_STAGED_SPHERES, tab, kinds,
+                        cam_row, time, flags=flags, th=th, tw=tw,
+                        sky_from_final_dir=sky_from_final_dir, spp=1, **kw)
 
 
 def render_color_spheres_chunked(packed: PackedSpheres, cam_row, time: int, *,

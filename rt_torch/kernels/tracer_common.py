@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the tracer stages every kernel shares: camera
-ray generation, the three-way material scatter and the sky — counterpart of
+ray generation, the three-way material scatter, the sky and the sample loop
+of the whole-frame kernels — counterpart of
 ``rt/kernels/tracer_common.py``.  The CUDA form of the same stages is
 ``csrc/rt_device.cuh``; the two must stay operation for operation alike.
 
@@ -139,3 +140,39 @@ def sky_times_atten(primary_dy, atten):
     t = primary_dy * 0.5 + 0.5
     return tuple(atten[c] * (SKY[c] * (1.0 - t) + BLUE[c] * t)
                  for c in range(3))
+
+
+def sample_loop(bounce, state, o, d0, primary_dy, *, bounces: int, spp: int,
+                sky_from_final_dir: bool):
+    """The sample loop of one frame: the same primary ray traced ``spp``
+    times with the RNG state carried across samples, then a true divide.
+    bounce: carry -> carry.  A dead ray passes through a bounce unchanged,
+    so the kernels' early exits (a thread at its own miss, a block when all
+    its rays are dead) only skip work, and so does the ``break`` here."""
+    one = torch.ones_like(o[0])
+    zero = torch.zeros_like(o[0])
+    acc = (zero, zero, zero)
+    for _ in range(spp):
+        carry = (state, o, d0, (one, one, one),
+                 torch.ones_like(state, dtype=torch.int32))
+        for _ in range(bounces):
+            if not bool((carry[4] > 0).any()):
+                break
+            carry = bounce(carry)
+        state, _, d, atten, _ = carry
+        col = sky_times_atten(d[1] if sky_from_final_dir else primary_dy,
+                              atten)
+        acc = vm.add3(acc, col) if spp > 1 else col
+    if spp > 1:
+        # a tensor divisor: CUDA division by a Python scalar multiplies by
+        # its reciprocal, which is not the IEEE quotient
+        n = torch.tensor(float(spp), dtype=torch.float32, device=o[0].device)
+        acc = (acc[0] / n, acc[1] / n, acc[2] / n)
+    return acc
+
+
+def index_planes(planes, bounces: int, like):
+    """(bounces, ...) int32 from the index planes of the bounces a recorder
+    ran; the bounces after every ray died read -1."""
+    miss = torch.full_like(like, -1, dtype=torch.int32)
+    return torch.stack(planes + [miss] * (bounces - len(planes)))

@@ -1,10 +1,11 @@
-"""The triangle wavefront path — counterpart of ``rt/kernels/tris_kernel.py``
+"""The triangle paths — counterpart of ``rt/kernels/tris_kernel.py``
 (``_morton_order``, ``pack_tri_table``, ``_trace_bounce``, ``_ray_sort_key``,
-the first/bounce/raygen wave kernels and ``render_color_tris_wave``; ``lean``
-payload, ``chunk_oct`` and ``morton`` coherence keys, any number of samples
-per pixel).
+the first/bounce/raygen wave kernels and ``render_color_tris_wave`` with the
+``lean`` payload, ``chunk_oct`` and ``morton`` coherence keys and any number
+of samples per pixel; the monolithic ``render_color_tris`` and its recording
+variant ``render_color_tris_record``).
 
-Three kernels carry the path, each a hand-written CUDA kernel
+Three kernels carry the wavefront path, each a hand-written CUDA kernel
 (``csrc/tris_wave.cu``) with a plain PyTorch version beside it:
 
 - ``wave_first`` — raygen fused with bounce 0 over (th, tw) pixel tiles
@@ -13,6 +14,15 @@ Three kernels carry the path, each a hand-written CUDA kernel
   consecutive rays of the sorted stream, payload updated in place;
 - ``wave_raygen`` — primary rays only (more than one sample per pixel:
   every sample's bounces then start from them, through ``wave_bounce``).
+
+Two more trace a whole frame in one launch (``csrc/tris_mono.cu``), with the
+same bounce (``trace_bounce`` here, ``csrc/tris_trace.cuh`` there):
+
+- ``tris_mono`` — ``render_color_tris``: raygen, the sample loop, every
+  bounce in the eye's chunk order, the sky;
+- ``tris_record`` — ``render_color_tris_record``: the same at one sample
+  per pixel, and per bounce the table row each ray hit (-1 on a miss), for
+  the path-replay gradients (``rt_torch/grad``).
 
 A wrapper runs the plain version only when its tensors lie on the CPU; on
 a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -26,6 +36,7 @@ one of its live rays enters the chunk's box nearer than its best hit.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -48,7 +59,8 @@ assert 3 * KEY_BITS + 3 <= 31
 _EPS = float(np.float32(EPSILON_TRIS))
 _FLT_MAX = float(np.float32(FLT_MAX))
 
-LAUNCHES = {"wave_first": 0, "wave_bounce": 0, "wave_raygen": 0}
+LAUNCHES = {"wave_first": 0, "wave_bounce": 0, "wave_raygen": 0,
+            "tris_mono": 0, "tris_record": 0}
 
 
 class PackedScene(NamedTuple):
@@ -58,6 +70,7 @@ class PackedScene(NamedTuple):
     mats: torch.Tensor      # (K, 5) f32: albedo rgb, param, kind
     chunks: torch.Tensor    # (n_chunks, 6) f32: box min xyz, max xyz
     centroid: torch.Tensor  # (n_chunks, 3) f32 box centres
+    order: torch.Tensor     # (m,) int64: scene triangle id of each table row
 
     @property
     def n_chunks(self) -> int:
@@ -150,7 +163,7 @@ def pack_tri_table(scene, chunk: int = CHUNK,
     chunks = torch.cat([vmin, vmax], dim=1)
     centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
     return PackedScene(tab.contiguous(), mats.contiguous(),
-                       chunks.contiguous(), centroid)
+                       chunks.contiguous(), centroid, order)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +180,8 @@ def _fmax(a, b):
 
 
 def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
-                 chunk: int = CHUNK, scan_counts=None):
+                 chunk: int = CHUNK, scan_counts=None,
+                 track_idx: bool = False):
     """One bounce over all tiles: front-to-back chunk-culled closest-hit
     scan, once-per-bounce material resolve, scatter.
 
@@ -188,6 +202,7 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
     bn = (zero, zero, zero)
     bmid = zero
     wch = torch.full_like(active, -1)
+    btid = torch.full_like(active, -1) if track_idx else None
     alive_per_tile = alive.sum(dim=1)
     scans = 0
 
@@ -234,6 +249,9 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
             bt = torch.where(valid, t, bt)
             bn = vm.where3(valid, (col[9], col[10], col[11]), bn)
             bmid = torch.where(valid, col[12], bmid)
+            if track_idx:
+                btid = torch.where(valid, (lo + k)[:, None].to(btid.dtype),
+                                   btid)
         # the chunk whose scan last improved best-t owns the hit
         wch = torch.where(bt < prev, ci[:, None].to(wch.dtype), wch)
 
@@ -268,7 +286,10 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
     d = vm.where3(hit, nd, d)
     atten = vm.where3(hit, vm.scale3(vm.mul3(atten, bal), 0.7), atten)
     wch = torch.where(hit, wch, torch.full_like(wch, -1))
-    return state, o, d, atten, hit.to(torch.int32), wch
+    out = (state, o, d, atten, hit.to(torch.int32), wch)
+    if track_idx:
+        out += (torch.where(hit, btid, torch.full_like(btid, -1)),)
+    return out
 
 
 def _check_tile(th: int, tw: int, height_pad: int, width_pad: int):
@@ -543,6 +564,164 @@ def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
     _build.check(lib, code, "wave_bounce")
     LAUNCHES["wave_bounce"] += 1
     return wch
+
+
+# ---------------------------------------------------------------------------
+# the whole-frame path: one launch traces a frame (K7) or records it (K9)
+# ---------------------------------------------------------------------------
+
+def eye_chunk_order(packed: PackedScene, cam_row) -> torch.Tensor:
+    """Front-to-back chunk visit order from the camera eye, (n_chunks,)
+    int32: the one order the whole-frame kernels use for every bounce."""
+    eye = torch.from_numpy(np.asarray(cam_row, np.float32)[0, 0:3].copy())
+    return chunk_order(packed.centroid, eye.to(packed.tab.device))
+
+
+def _mono_plain(packed: PackedScene, cam_row, time: int, row0: int,
+                flags: TraceFlags, *, record: bool, height: int, width: int,
+                height_pad: int, width_pad: int, bounces: int,
+                normalize_defocus_dir: bool, th: int, tw: int,
+                sky_from_final_dir: bool = False, spp: int = 1,
+                scan_counts=None):
+    """Plain version of both whole-frame kernels: (color (3, Hp, Wp), index
+    planes (bounces, Hp, Wp) int32 or None)."""
+    _check_tile(th, tw, height_pad, width_pad)
+    dev = packed.tab.device
+    nh, nw = height_pad // th, width_pad // tw
+
+    def tiled(x):       # (Hp, Wp) -> (n_tiles, th*tw)
+        return (x.reshape(nh, th, nw, tw).permute(0, 2, 1, 3)
+                .reshape(nh * nw, th * tw))
+
+    def untiled(x):
+        return (x.reshape(nh, nw, th, tw).permute(0, 2, 1, 3)
+                .reshape(height_pad, width_pad))
+
+    times = torch.tensor([int(time) & rng.MASK], dtype=torch.int64,
+                         device=dev)
+    state, o, d0 = primary_rays(
+        cam_row, times, row0, height=height, width=width,
+        height_pad=height_pad, width_pad=width_pad,
+        normalize_defocus_dir=normalize_defocus_dir)
+    order = (eye_chunk_order(packed, cam_row).to(torch.int64)
+             .reshape(1, -1).expand(nh * nw, -1))
+    planes = []
+
+    def bounce(carry):
+        # a tile with no live ray passes through unchanged: no chunk is
+        # live for it (the kernel leaves the bounce loop there)
+        out = trace_bounce(packed, order, carry, flags,
+                           scan_counts=scan_counts, track_idx=record)
+        if record:
+            planes.append(out[6])
+        return out[:5]
+
+    col = tc.sample_loop(
+        bounce, tiled(state[0]), tuple(tiled(c[0]) for c in o),
+        tuple(tiled(c[0]) for c in d0), tiled(d0[1][0]), bounces=bounces,
+        spp=spp, sky_from_final_dir=sky_from_final_dir)
+    color = torch.stack([untiled(c) for c in col])
+    if not record:
+        return color, None
+    idx = tc.index_planes(planes, bounces, tiled(state[0]))
+    return color, torch.stack([untiled(p) for p in idx])
+
+
+def render_color_tris_plain(packed: PackedScene, cam_row, time: int, *,
+                            flags: TraceFlags, row0: int = 0, **kw):
+    """Plain version of ``render_color_tris`` (same arguments, same
+    result; ``scan_counts`` as in ``trace_bounce``)."""
+    return _mono_plain(packed, cam_row, time, row0, flags, record=False,
+                       **kw)[0]
+
+
+def render_color_tris_record_plain(packed: PackedScene, cam_row, time: int,
+                                   *, flags: TraceFlags, **kw):
+    """Plain version of ``render_color_tris_record``."""
+    color, idx = _mono_plain(packed, cam_row, time, 0, flags, record=True,
+                             **kw)
+    return color, idx, packed.order
+
+
+def _launch_mono(name: str, packed: PackedScene, cam_row, time: int,
+                 row0: int, flags: TraceFlags, *, height: int, width: int,
+                 height_pad: int, width_pad: int, bounces: int,
+                 normalize_defocus_dir: bool, th: int, tw: int,
+                 sky_from_final_dir: bool, spp: int):
+    """One launch of the whole-frame kernel; ``name`` says which:
+    ``"tris_mono"`` returns the color, ``"tris_record"`` (color, index
+    planes)."""
+    from rt_torch.kernels import _build
+
+    _check_tile(th, tw, height_pad, width_pad)
+    _check_block(th, tw)
+    _require_tables(packed, CHUNK)
+    dev = packed.tab.device
+    order = eye_chunk_order(packed, cam_row)
+    cam = _cam_array(cam_row)
+    out = torch.empty((3, height_pad, width_pad), dtype=torch.float32,
+                      device=dev)
+    idx = None
+    if name == "tris_record":
+        idx = torch.empty((bounces, height_pad, width_pad),
+                          dtype=torch.int32, device=dev)
+    lib = _build.load()
+    code = lib.rt_tris_mono(
+        packed.tab.data_ptr(), packed.mats.data_ptr(),
+        packed.chunks.data_ptr(), order.data_ptr(), cam.ctypes.data,
+        int(time) & rng.MASK, row0, out.data_ptr(),
+        None if idx is None else idx.data_ptr(), packed.n_chunks, CHUNK,
+        packed.mats.shape[0], height, width, height_pad, width_pad, th, tw,
+        bounces, spp, int(normalize_defocus_dir),
+        int(flags.normalize_reflect_in), int(flags.has_metal),
+        int(flags.has_dielectric), int(sky_from_final_dir),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return out if idx is None else (out, idx)
+
+
+def render_color_tris(packed: PackedScene, cam_row, time: int, *,
+                      flags: TraceFlags, sky_from_final_dir: bool = False,
+                      spp: int = 1, row0: int = 0, **kw):
+    """Planar (3, Hp, Wp) color of one frame in ONE launch: raygen, every
+    bounce, the sample loop and the sky.  Every bounce visits the chunks
+    front to back from the camera eye; one CUDA block traces one (th, tw)
+    pixel tile, the unit of the chunk cull.
+
+    cam_row: (1, 20) f32 on the host.  time: the u32 time uniform.
+    kw: height, width: the real resolution (seed and uv math); height_pad,
+    width_pad: the traced extent, a multiple of the tile (th, tw); bounces;
+    normalize_defocus_dir.
+    spp > 1: the same primary ray traced spp times with the RNG state
+    carried across samples, summed from zero, then a true divide.
+    row0: global row of the launch's first row (the rays of rows row0.. of
+    a full frame).
+    """
+    run = (render_color_tris_plain if packed.tab.device.type == "cpu"
+           else functools.partial(_launch_mono, "tris_mono"))
+    return run(packed, cam_row, time, row0=row0, flags=flags,
+               sky_from_final_dir=sky_from_final_dir, spp=spp, **kw)
+
+
+def render_color_tris_record(packed: PackedScene, cam_row, time: int, *,
+                             flags: TraceFlags,
+                             sky_from_final_dir: bool = False, **kw):
+    """(color (3, Hp, Wp) f32, hit indices (bounces, Hp, Wp) int32, order
+    (m,)): the frame of ``render_color_tris`` at one sample per pixel, and
+    per bounce the row of the triangle TABLE each pixel's ray hit, -1 on a
+    miss and from then on.  ``order`` maps table rows back to scene triangle
+    ids (``PackedScene.order``).  What the path-replay gradients consume.
+    kw: as for ``render_color_tris``.
+    """
+    if packed.tab.device.type == "cpu":
+        return render_color_tris_record_plain(
+            packed, cam_row, time, flags=flags,
+            sky_from_final_dir=sky_from_final_dir, **kw)
+    color, idx = _launch_mono("tris_record", packed, cam_row, time, 0, flags,
+                              sky_from_final_dir=sky_from_final_dir, spp=1,
+                              **kw)
+    return color, idx, packed.order
 
 
 # ---------------------------------------------------------------------------

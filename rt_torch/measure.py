@@ -3,10 +3,13 @@
     python -m rt_torch.measure tiles [PATH]       # tile-shape sweep
     python -m rt_torch.measure breakdown [PATH]   # where a frame's time goes
     python -m rt_torch.measure wall [PATH]        # ms per frame, five windows
+    python -m rt_torch.measure fit [FIT]          # ms per record and per step
+    python -m rt_torch.measure lookup [FIT]       # row lookups, forward+backward
 
-PATH names one of the port's paths (``PATHS`` below, the table
+PATH names one of the port's render paths (``PATHS`` below, the table
 ``chip_smoke.py`` drives too; default ``suzanne``: Suzanne 512x512, 8
-bounces, 1 sample per pixel per frame).  Both run on ``cuda:0`` and fail
+bounces, 1 sample per pixel per frame), FIT one of its training paths
+(``FITS``; default ``suzanne_1080p``).  All run on ``cuda:0`` and fail
 without a card.  Every line carries the card's name and power limit as
 ``nvidia-smi`` reports them.
 
@@ -27,10 +30,12 @@ from typing import NamedTuple
 
 import torch
 
+from rt_torch.grad import replay
+from rt_torch.grad.params import SphereParams, TriangleParams
+from rt_torch.grad.train import fit_replay
 from rt_torch.kernels import dispatch
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes
-
 
 
 class Path(NamedTuple):
@@ -58,6 +63,35 @@ PATHS = {
     # the fused first kernel
     "dragon": Path(7, 512, 512, dict(bounces=5),
                    {"wave_first": 1, "wave_bounce": 4}, 8),
+    # the whole frame in one launch: no stream, no sort
+    "suzanne_mono": Path(5, 512, 512, dict(bounces=8, tris_path="mono"),
+                         {"tris_mono": 1}, 32),
+}
+
+
+class Fit(NamedTuple):
+    """A training path: the scene's own render at time 1000 is the target,
+    ``wrong`` (row -> albedo) overwrites rows of the albedo table (per
+    material for a mesh, per sphere else), and ``fit_replay`` recovers
+    them."""
+    scene_id: int
+    width: int
+    height: int
+    wrong: dict
+    steps: int
+    rerecord_every: int
+    learning_rate: float
+    kernel: str         # the recorder's launch count
+
+
+FITS = {
+    # the JAX package's BASELINE config 5: Suzanne 1920x1080 at the scene's
+    # own bounces, material 0 set to red, 40 steps with one re-record
+    "suzanne_1080p": Fit(5, 1920, 1080, {0: (0.8, 0.1, 0.1)}, 40, 20, 5e-2,
+                         "tris_record"),
+    "sphere_simple": Fit(1, 512, 512, {1: (0.1, 0.9, 0.1),
+                                       2: (0.9, 0.2, 0.6)}, 20, 10, 5e-2,
+                         "spheres_record"),
 }
 MIN_WINDOW_S = 0.3
 TILES = [(4, 8), (8, 8), (8, 16), (8, 32), (16, 32), (32, 32)]
@@ -134,12 +168,157 @@ def wall(path: str = "suzanne", windows: int = 5):
         "frames_per_s": [1e3 / m for m in runs]}), flush=True)
 
 
+def fit_setup(name: str, device="cuda"):
+    """(scene with the wrong albedos, camera, config, target image) of the
+    named training path."""
+    f = FITS[name]
+    sd = scenes.build_scene(f.scene_id, f.width, f.height, device=device)
+    target = dispatch.render_color(sd.scene, sd.camera, sd.config, 1000,
+                                   device)
+    field = "mat_albedo" if sd.kind == "triangles" else "albedo"
+    albedo = getattr(sd.scene, field).clone()
+    for row, rgb in f.wrong.items():
+        albedo[row] = albedo.new_tensor(rgb)
+    return sd.scene._replace(**{field: albedo}), sd.camera, sd.config, target
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over ``reps`` calls after one
+    warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run_fit(name: str = "suzanne_1080p") -> dict:
+    """The named training path on the card: the whole ``fit_replay`` by the
+    host clock (records included), one record by CUDA events, and the parts
+    of one step (row gather, forward, backward) on their own."""
+    f = FITS[name]
+    (scene, camera, config, target), loss_fn, params, hits = _step_setup(name)
+    kw = dict(time=1000, rerecord_every=f.rerecord_every,
+              learning_rate=f.learning_rate)
+    fit_replay(scene, camera, config, target, steps=2, **kw)    # warm-up
+
+    record_ms = _event_ms(
+        lambda: replay.record_hits(scene, camera, config, 1000), 5)
+    tris = f.kernel == "tris_record"
+    forward_ms = _event_ms(lambda: loss_fn(params), 5)
+    step_ms = _event_ms(lambda: loss_fn(params).backward(), 5)
+    gather_ms = 0.0
+    if tris:
+        tab = replay._tris_replay_tables(scene)[0]
+        gather_ms = _event_ms(lambda: replay._gather_tri_rows(tab, hits), 5)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, losses = fit_replay(scene, camera, config, target, steps=f.steps, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dispatch.launch_counts()
+    records = launches[f.kernel]
+    hit_bytes = hits.numel() * 4
+    return {
+        "fit": name, "scene_id": f.scene_id, "size": [f.width, f.height],
+        "bounces": config.bounces, "steps": f.steps,
+        "rerecord_every": f.rerecord_every, "records": records,
+        "wall_ms": wall_ms, "ms_per_step_incl_records": wall_ms / f.steps,
+        "ms_per_record": record_ms,
+        "ms_per_step": (wall_ms - records * record_ms) / f.steps,
+        "steps_per_s": f.steps / (wall_ms * 1e-3),
+        "forward_ms": forward_ms, "forward_backward_ms": step_ms,
+        "row_gather_ms_per_record": gather_ms,
+        "hits_bytes": hit_bytes,
+        "pre_gathered_rows_bytes": hit_bytes * 13 if tris else 0,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "losses_finite": all(math.isfinite(v) for v in losses),
+        "launches": launches}
+
+
+def _step_setup(name: str):
+    """(``fit_setup``'s tuple, loss function over one record's hits, start
+    parameters as leaves, hits) of the named training path."""
+    setup = scene, camera, config, target = fit_setup(name)
+    _, hits = replay.record_hits(scene, camera, config, 1000)
+    loss_fn = replay.replay_loss_fn(scene, camera, config, target, hits, 1000)
+    tris = FITS[name].kernel == "tris_record"
+    start = (TriangleParams if tris else SphereParams).from_scene(scene)
+    params = type(start)(*(None if v is None else v.clone().requires_grad_()
+                           for v in start))
+    return setup, loss_fn, params, hits
+
+
+def fit(name: str = "suzanne_1080p"):
+    """``run_fit``, then one forward + backward step under torch.profiler:
+    the device time of its eight dearest operators, and the share of the
+    unprofiled step (``forward_backward_ms``) the device sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    result = run_fit(name)
+    _, loss_fn, params, _ = _step_setup(name)
+    loss_fn(params).backward()                            # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss_fn(params).backward()
+        torch.cuda.synchronize()
+    ops = {ev.key: ev.self_device_time_total / 1e3
+           for ev in prof.key_averages() if ev.key.startswith("aten::")}
+    busy_ms = sum(ops.values())
+    top = sorted(ops, key=ops.get, reverse=True)[:8]
+    print(json.dumps({"measure": "fit", "card": _card()} | result | {
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(
+            0.0, 1.0 - busy_ms / result["forward_backward_ms"]),
+        "top_operators_ms": {k: ops[k] for k in top}}), flush=True)
+
+
+def lookup(name: str = "suzanne_1080p"):
+    """Forward + backward milliseconds of three ways to fetch one bounce's
+    rows from the replay's differentiable table (the material table of a
+    mesh, the sphere table) at the named fit's hits: the indexing operator,
+    ``index_select`` and the embedding lookup ``replay.gather_rows`` uses."""
+    from torch.nn.functional import embedding
+
+    (scene, *_), _, _, hits = _step_setup(name)
+    if FITS[name].kernel == "tris_record":
+        tri, tab = replay._tris_replay_tables(scene)
+        idx = replay._gather_tri_rows(tri, hits[0])[..., 12].long()
+    else:
+        tab = replay._sphere_replay_table(scene)
+        idx = torch.clamp(hits[0], min=0).long()
+    tab = tab.detach().requires_grad_()
+    cot = torch.ones(*idx.shape, tab.shape[1], device=tab.device)
+    ways = {
+        "index": lambda: tab[idx],
+        "index_select": lambda: tab.index_select(0, idx.reshape(-1)).reshape(
+            cot.shape),
+        "embedding": lambda: embedding(idx, tab),
+    }
+    ms = {k: _event_ms(lambda f=f: torch.autograd.grad(f(), tab, cot), 3)
+          for k, f in ways.items()}
+    print(json.dumps({"measure": "lookup", "card": _card(), "fit": name,
+                      "table": list(tab.shape), "lookups": idx.numel(),
+                      "forward_backward_ms": ms}), flush=True)
+
+
 _GROUPS = (
     ("kernel_wave_first", ("wave_first_kernel",)),
     ("kernel_wave_bounce", ("wave_bounce_kernel",)),
     ("kernel_wave_raygen", ("wave_raygen_kernel",)),
     ("kernel_spheres", ("spheres_kernel",)),
     ("kernel_spheres_chunked", ("spheres_chunked_kernel",)),
+    ("kernel_tris_mono", ("tris_mono_kernel",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
     ("gather_scatter", ("index", "gather", "scatter")),
 )
@@ -195,11 +374,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("rt_torch.measure needs a CUDA device", file=sys.stderr)
         return 1
-    what = {"tiles": tiles, "breakdown": breakdown, "wall": wall}
+    what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
+            "lookup": lookup}
+    names = FITS if argv[:1] in (["fit"], ["lookup"]) else PATHS
     if (len(argv) not in (1, 2) or argv[0] not in what
-            or (len(argv) == 2 and argv[1] not in PATHS)):
+            or (len(argv) == 2 and argv[1] not in names)):
         print(__doc__, file=sys.stderr)
-        print(f"paths: {', '.join(PATHS)}", file=sys.stderr)
+        print(f"paths: {', '.join(PATHS)}; fits: {', '.join(FITS)}",
+              file=sys.stderr)
         return 2
     what[argv[0]](*argv[1:])
     return 0

@@ -199,3 +199,133 @@ def test_cuda_kernels_equal_plain_versions_on_the_large_branch_bitwise():
                                 n_bounces=1, th=th, tw=tw)
     for a, b in zip((*ins[0], kw_), (*ins[1], pw_)):
         assert _bit_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,size,bounces,spp,tile,sky,row0", [
+    ("suzanne", 128, 4, 1, (8, 16), False, 0),
+    ("suzanne", 128, 3, 3, (8, 32), True, 0),
+    ("cube", 64, 5, 2, (4, 8), False, 32),
+])
+def test_cuda_mono_kernel_equals_plain_version_bitwise(name, size, bounces,
+                                                       spp, tile, sky, row0):
+    """K7: the whole frame in one launch, the sample loop and a band
+    offset included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = getattr(tscenes, f"scene_{name}")(size, size, device="cuda")
+    packed = tdispatch.pack_scene(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = dict(height=size, width=size, height_pad=size - row0,
+                width_pad=size, bounces=bounces, normalize_defocus_dir=True,
+                flags=tdispatch.trace_flags(sd.config), th=tile[0],
+                tw=tile[1], sky_from_final_dir=sky, spp=spp, row0=row0)
+    before = ttk.LAUNCHES["tris_mono"]
+    k = ttk.render_color_tris(packed, cam_row, TIME, **args)
+    assert ttk.LAUNCHES["tris_mono"] == before + 1
+    assert _bit_equal(k, ttk.render_color_tris_plain(packed, cam_row, TIME,
+                                                     **args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,bounces,tile", [("suzanne", 4, (8, 16)),
+                                               ("quad", 6, (8, 32))])
+def test_cuda_tris_recorder_equals_plain_and_mono_bitwise(name, bounces,
+                                                          tile):
+    """K9: color and every index plane against the plain version; its color
+    against K7's.  quad at 6 bounces: whole tiles die before the last
+    bounce, whose planes must read -1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = getattr(tscenes, f"scene_{name}")(128, 128, device="cuda")
+    packed = tdispatch.pack_scene(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = dict(height=128, width=128, height_pad=128, width_pad=128,
+                bounces=bounces, normalize_defocus_dir=True,
+                flags=tdispatch.trace_flags(sd.config), th=tile[0],
+                tw=tile[1])
+    before = ttk.LAUNCHES["tris_record"]
+    color, idx, order = ttk.render_color_tris_record(packed, cam_row, TIME,
+                                                     **args)
+    assert ttk.LAUNCHES["tris_record"] == before + 1
+    p_color, p_idx, _ = ttk.render_color_tris_record_plain(
+        packed, cam_row, TIME, **args)
+    assert _bit_equal(color, p_color)
+    assert torch.equal(idx, p_idx)
+    assert idx.dtype == torch.int32 and int(idx.min()) == -1
+    assert int(idx.max()) < packed.tab.shape[0]
+    assert order.shape == (sd.scene.m,)
+    assert _bit_equal(color, ttk.render_color_tris(packed, cam_row, TIME,
+                                                   **args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make_scene,width,height", [
+    ("scene_sphere_simple", 128, 96), ("test_scene_complex", 128, 96),
+    ("scene_sphere_cover", 64, 48)])
+def test_cuda_sphere_recorder_equals_plain_and_render_bitwise(make_scene,
+                                                              width, height):
+    """K8: color and every index plane against the plain version; its color
+    against K5's plain version.  cover: 486 rows, past what K5 renders
+    flat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = getattr(tscenes, make_scene)(width, height, device="cuda")
+    tab, kinds, n = tdispatch.pack_spheres_table(sd.scene)
+    if 0 < sd.config.n_active_spheres < n:
+        n = sd.config.n_active_spheres
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = dict(n_spheres=n, height=height, width=width, height_pad=height,
+                width_pad=width, bounces=sd.config.bounces,
+                normalize_defocus_dir=False,
+                flags=tdispatch.trace_flags(sd.config))
+    before = tsk.LAUNCHES["spheres_record"]
+    color, idx = tsk.render_color_spheres_record(tab, kinds, cam_row, TIME,
+                                                 th=8, tw=16, **args)
+    assert tsk.LAUNCHES["spheres_record"] == before + 1
+    p_color, p_idx = tsk.render_color_spheres_record_plain(
+        tab, kinds, cam_row, TIME, **args)
+    assert _bit_equal(color, p_color)
+    assert torch.equal(idx, p_idx)
+    assert int(idx.min()) == -1 and 0 <= int(idx.max()) < n
+    assert _bit_equal(color, tsk.render_color_spheres_plain(
+        tab, kinds, cam_row, TIME, **args))
+    with pytest.raises(ValueError, match="n_spheres"):
+        big = torch.zeros((2000, 8), device="cuda")
+        tsk.render_color_spheres_record(
+            big, torch.zeros(2000, dtype=torch.int32, device="cuda"),
+            cam_row, TIME, th=8, tw=16, **dict(args, n_spheres=2000))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["suzanne", "sphere_simple"])
+def test_cuda_fit_replay_takes_five_steps(name):
+    """Five Adam steps on the card with one re-record: the recorder kernel
+    launches twice, the losses are finite and fall, and the replay of the
+    recorded hits gives the recorder's color."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.grad import fit_replay, record_hits, replay_color
+
+    sd = getattr(tscenes, f"scene_{name}")(128, 96, device="cuda")
+    cfg = dataclasses.replace(sd.config, bounces=4)
+    target, hits = record_hits(sd.scene, sd.camera, cfg, TIME)
+    with torch.no_grad():
+        img = replay_color(sd.scene, sd.camera, cfg, TIME, hits)
+    assert float((img - target).abs().max()) <= 1e-5
+    if name == "suzanne":
+        albedo = sd.scene.mat_albedo.clone()
+        albedo[0] = albedo.new_tensor([0.8, 0.1, 0.1])
+        bad, table = sd.scene._replace(mat_albedo=albedo), ttk.LAUNCHES
+        kernel = "tris_record"
+    else:
+        albedo = sd.scene.albedo.clone()
+        albedo[0] = albedo.new_tensor([0.1, 0.9, 0.1])
+        bad, table = sd.scene._replace(albedo=albedo), tsk.LAUNCHES
+        kernel = "spheres_record"
+    before = table[kernel]
+    _, losses = fit_replay(bad, sd.camera, cfg, target, time=TIME, steps=5,
+                           rerecord_every=3, learning_rate=5e-2)
+    assert table[kernel] == before + 2
+    assert all(l == l and l < float("inf") for l in losses)
+    assert losses[-1] < losses[0]

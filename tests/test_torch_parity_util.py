@@ -312,3 +312,63 @@ def eager_sphere_kernel(tab, kinds, cam_row, time, *, n_spheres, height,
                             **flags)
                 out[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = tile.a
     return out
+
+
+def _eager_frame(kernel, refs, outs_of, module, *, hp, wp, th, tw, **kw):
+    """A whole-frame kernel body (grid (rows, cols) of (th, tw) tiles) run
+    eagerly tile by tile.  outs_of(): fresh (leading, th, tw) output arrays
+    of one tile.  Returns the outputs as (leading, hp, wp) NumPy arrays."""
+    full = [np.zeros(o.shape[:1] + (hp, wp), o.dtype) for o in outs_of()]
+    ids = [0, 0]
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(module.pl, "program_id", lambda axis: ids[axis])
+        for i in range(hp // th):
+            for j in range(wp // tw):
+                ids[0], ids[1] = i, j
+                tiles = [FakeRef(o) for o in outs_of()]
+                kernel(*refs, *tiles, th=th, tw=tw, **kw)
+                for f, t in zip(full, tiles):
+                    f[:, i * th:(i + 1) * th, j * tw:(j + 1) * tw] = t.a
+    return full
+
+
+def eager_tris_kernel(jscene, cam_row, order, time, *, record, height, width,
+                      hp, wp, th, tw, bounces, flags,
+                      normalize_defocus_dir=True, spp=1,
+                      sky_from_final_dir=False):
+    """The monolithic triangle ``_kernel`` (record=False: returns the
+    (3, hp, wp) image) or ``_kernel_record`` (record=True: returns (image,
+    (bounces, hp, wp) table-order index planes)), eagerly."""
+    refs, mats, n_chunks = _tables_refs(jscene, order)
+    refs += [FakeRef(cam_row),
+             FakeRef(np.asarray(time, np.uint32).reshape(1, 1))]
+    kw = dict(m=refs[0].a.shape[0], n_chunks=n_chunks, chunk=32,
+              n_mats=mats.shape[0], height=height, width=width,
+              bounces=bounces, normalize_defocus_dir=normalize_defocus_dir,
+              sky_from_final_dir=sky_from_final_dir, **flags)
+    color = lambda: np.zeros((3, th, tw), np.float32)
+    if record:
+        outs = lambda: [color(), np.zeros((bounces, th, tw), np.int32)]
+        return _eager_frame(jtk._kernel_record, refs, outs, jtk, hp=hp,
+                            wp=wp, th=th, tw=tw, **kw)
+    refs.append(FakeRef(np.zeros((1, 1), np.int32)))          # row0
+    return _eager_frame(jtk._kernel, refs, lambda: [color()], jtk, hp=hp,
+                        wp=wp, th=th, tw=tw, spp=spp, **kw)[0]
+
+
+def eager_sphere_record(tab, kinds, cam_row, time, *, n_spheres, height,
+                        width, hp, wp, th, tw, bounces, flags,
+                        sky_from_final_dir=False):
+    """The sphere ``_kernel_record``, eagerly: (image (3, hp, wp), index
+    planes (bounces, hp, wp))."""
+    refs = (FakeRef(np.asarray(tab, np.float32)),
+            FakeRef(np.asarray(kinds, np.int32).reshape(-1, 1)),
+            FakeRef(cam_row),
+            FakeRef(np.asarray(time, np.uint32).reshape(1, 1)))
+    outs = lambda: [np.zeros((3, th, tw), np.float32),
+                    np.zeros((bounces, th, tw), np.int32)]
+    return _eager_frame(jsk._kernel_record, refs, outs, jsk, hp=hp, wp=wp,
+                        th=th, tw=tw, n_spheres=n_spheres, height=height,
+                        width=width, bounces=bounces,
+                        normalize_defocus_dir=False,
+                        sky_from_final_dir=sky_from_final_dir, **flags)

@@ -213,6 +213,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "rt" or m.startswith("rt."))
 print("BAD", bad)
+print("SEEN", sorted(m for m in sys.modules if m.startswith("rt_torch.")))
 """
 
 
@@ -222,6 +223,11 @@ def test_port_and_chip_smoke_import_neither_jax_nor_rt():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+    seen = proc.stdout.split("SEEN", 1)[1]
+    for module in ("grad.loss", "grad.params", "grad.replay", "grad.train",
+                   "core.materials", "core.trace", "core.camera",
+                   "core.sphere", "measure", "convert"):
+        assert f"'rt_torch.{module}'" in seen, module
 
 
 def test_no_jax_or_rt_import_statement_in_the_port():

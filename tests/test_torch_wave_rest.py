@@ -236,7 +236,7 @@ def test_bounce_schedules_of_the_new_paths():
 
 
 @pytest.mark.parametrize("path", ["suzanne", "sphere_simple", "sphere_cover",
-                                  "suzanne_spp4", "dragon"])
+                                  "suzanne_spp4", "dragon", "suzanne_mono"])
 def test_measured_paths_state_the_launches_their_schedule_gives(path):
     """``measure.PATHS`` is the one table of the port's paths; the launches
     it states per frame (what ``chip_smoke.py`` checks the counters
@@ -246,7 +246,7 @@ def test_measured_paths_state_the_launches_their_schedule_gives(path):
 
     assert sorted(measure.PATHS) == sorted(
         ["suzanne", "sphere_simple", "sphere_cover", "suzanne_spp4",
-         "dragon"])
+         "dragon", "suzanne_mono"])
     p = measure.PATHS[path]
     r = measure.renderer(path, device="cpu")
     cfg = r.config
@@ -254,6 +254,8 @@ def test_measured_paths_state_the_launches_their_schedule_gives(path):
     if isinstance(r._packed, tsk.PackedSpheres):
         flat = r._packed.chunks is None
         want = {"spheres" if flat else "spheres_chunked": 1}
+    elif cfg.tris_path == "mono":
+        want = {"tris_mono": 1}                 # the whole frame, any spp
     else:
         kw = tdispatch.wave_params(r._packed, cfg)
         first = cfg.samples_per_frame == 1
@@ -308,8 +310,7 @@ def test_wave_spp_image_equals_jax_wavefront(name, cfg):
     for k in ttk.LAUNCHES:
         ttk.LAUNCHES[k] = 0
     got = tdispatch.render_color(tscene, tcam, tcfg, TIME, "cpu").numpy()
-    assert ttk.LAUNCHES == {"wave_first": 0, "wave_bounce": 0,
-                            "wave_raygen": 0}     # CPU: plain versions only
+    assert not any(ttk.LAUNCHES.values())         # CPU: plain versions only
     assert_images_agree(want, got)
 
 
