@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from rt_torch/kernels/csrc, holds each of
-the eight (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
-tris_mono, tris_record, spheres_record) against its plain PyTorch version on
+the ten (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
+tris_mono, tris_record, spheres_record, and the sorted-stream recorder's
+wave_record and wave_record_bounce) against its plain PyTorch version on
 the card at the shapes and in the stream states each path gives it, drives
 the port's render paths (``rt_torch.measure.PATHS``) through ``build_scene
 -> ProgressiveRenderer -> draw_frames``:
@@ -25,12 +26,17 @@ its training paths (``rt_torch.measure.FITS``) through ``fit_replay``:
   config 5;
 - scene 1 512x512, 10 bounces, two albedos wrong, 20 steps with one
   re-record (spheres_record);
+- scenes 6 (lucy) and 7 (dragon) 512x512, 5 bounces, the mesh's material
+  wrong, 20 steps with one re-record (the sorted-stream recorder:
+  wave_record once and wave_record_bounce 4 times a record);
 
-and checks the goldens of ``tests/golden_tris`` and ``tests/golden``
-(``rt_torch.goldens``), Suzanne through the whole-frame path too.  Every
-phase prints one JSON line; any failure raises, so the exit code is non-zero
-and no result line is printed.  Needs no network and starts no process that
-outlives it.
+checks the goldens of ``tests/golden_tris`` and ``tests/golden``
+(``rt_torch.goldens``), Suzanne through the whole-frame path too, and
+renders through the oracle backend (no kernel): ``rt_torch.cli --oracle``
+once, the ``tests/golden_tris`` images, and one frame each of scene 1 and
+Suzanne timed.  Every phase prints one JSON line; any failure raises, so the
+exit code is non-zero and no result line is printed.  Needs no network and
+starts no process that outlives it.
 
 Tolerance of kernel against plain version: none.  The kernels are compiled
 with -fmad=false and use IEEE division and square root, so every output
@@ -39,8 +45,10 @@ element must be bit-equal (max_abs_err 0, no ray differs).
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -51,7 +59,7 @@ if not torch.cuda.is_available():
 
 import numpy as np  # noqa: E402
 
-from rt_torch import goldens, measure  # noqa: E402
+from rt_torch import cli, goldens, measure  # noqa: E402
 from rt_torch.kernels import (_build, dispatch, sphere_kernel,  # noqa: E402
                               tris_kernel)
 from rt_torch.scene import scenes  # noqa: E402
@@ -177,9 +185,7 @@ def _compare_bounce(case, size, packed, flags, th, tw, pay0, state0, active0,
                     n_bounces, reps):
     """K3 against its plain version from one stream state."""
     n = state0.shape[0]
-    tile = th * tw
-    mo = pay0[0:3].reshape(3, n // tile, tile).mean(dim=2)
-    tile_order = tris_kernel.chunk_order(packed.centroid, mo.T).reshape(-1)
+    tile_order = tris_kernel.tile_chunk_order(packed, pay0, th * tw)
 
     def fresh():
         return pay0.clone(), state0.clone(), active0.clone()
@@ -547,6 +553,166 @@ def phase_kernels_train():
     return records
 
 
+def compare_wave_record(make_scene, size: int, reps: int):
+    """K10a, then K10b on the morton-sorted stream after bounce 0, against
+    their plain versions (payload, state, active, winning chunk and the
+    index plane) on one frame of ``make_scene`` at size x size, over the
+    tables the recorder packs (no split_big).  With reps > 0 also times
+    them."""
+    sd = make_scene(size, size, device=DEV)
+    th, tw = dispatch.DEFAULT_TILE
+    flags = dispatch.trace_flags(sd.config)
+    packed = tris_kernel.pack_tri_table(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    order = tris_kernel.eye_chunk_order(packed, cam_row)
+    times = torch.tensor([1000], dtype=torch.int32, device=DEV)
+    first_kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+                    th=th, tw=tw, track_idx=True,
+                    normalize_defocus_dir=sd.config.normalize_defocus_dir)
+    case = f"{sd.name} recorder tables"
+    n = size * size
+    table_bytes = sum(t.numel() * 4 for t in
+                      (packed.tab, packed.mats, packed.chunks))
+
+    # ---- K10a ----
+    k_out = tris_kernel.wave_first(packed, order, cam_row, times, 0, flags,
+                                   **first_kw)
+    counts = []
+    p_out, plain_ms = _plain_timed(lambda: tris_kernel.wave_first_plain(
+        packed, order, cam_row, times, 0, flags, scan_counts=counts,
+        **first_kw))
+    rec = _wave_record("wave_record", 1211, case, size, th, tw, k_out, p_out,
+                       plain_ms, n_chunks=packed.n_chunks,
+                       index_entries_differ=float(
+                           (k_out[4] != p_out[4]).float().mean()))
+    if reps:
+        rec["ms"] = _timed(lambda i: tris_kernel.wave_first(
+            packed, order, cam_row, times, 0, flags, **first_kw), reps)
+        # payf 10, state, active, winning chunk, index: 14 words a ray
+        nbytes = table_bytes + order.numel() * 4 + 14 * n * 4
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+            counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
+    records = [rec]
+
+    # ---- K10b on the sorted stream after bounce 0 ----
+    payf, state, active, _, _ = k_out
+    key, perm = torch.sort(tris_kernel.ray_sort_key(
+        payf, active, *tris_kernel.scene_bounds(packed.chunks)), stable=True)
+    pay0 = payf[0:9][:, perm].contiguous()
+    state0 = state[perm].contiguous()
+    active0 = (key != tris_kernel.DEAD_KEY).to(torch.int32)
+    tile_order = tris_kernel.tile_chunk_order(packed, pay0, th * tw)
+
+    def fresh():
+        return pay0.clone(), state0.clone(), active0.clone()
+
+    kp, ks, ka = fresh()
+    kw_, kidx = tris_kernel.wave_bounce(packed, tile_order, kp, ks, ka, flags,
+                                        n_bounces=1, th=th, tw=tw,
+                                        track_idx=True)
+    pp, ps, pa = fresh()
+    counts = []
+    (pw, pidx), plain_ms = _plain_timed(lambda: tris_kernel.wave_bounce_plain(
+        packed, tile_order, pp, ps, pa, flags, n_bounces=1, th=th, tw=tw,
+        track_idx=True, scan_counts=counts))
+    rec = _wave_record("wave_record_bounce", 1277,
+                       f"{case}, morton-sorted stream after bounce 0", size,
+                       th, tw, (kp, ks, ka, kw_, kidx), (pp, ps, pa, pw, pidx),
+                       plain_ms, n_bounces=1, n_chunks=packed.n_chunks,
+                       index_entries_differ=float(
+                           (kidx != pidx).float().mean()))
+    if reps:
+        bufs = [fresh() for _ in range(reps)]
+        rec["ms"] = _timed(lambda i: tris_kernel.wave_bounce(
+            packed, tile_order, *bufs[i], flags, n_bounces=1, th=th, tw=tw,
+            track_idx=True), reps)
+        # reads pay 9, state, active; writes those, winning chunk, index
+        nbytes = table_bytes + tile_order.numel() * 4 + (11 + 13) * n * 4
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(counts,
+                                                                nbytes)
+    records.append(rec)
+    return records
+
+
+def compare_record_color(make_scene, size: int):
+    """The sorted-stream recorder's color against the render path's with a
+    sort before every bounce (``render_color_tris_wave(sort_every=1,
+    skip_last_sort=False, key_mode="morton")``) over the same tables: the
+    recording instances of the kernels must leave the arithmetic of the
+    render ones alone.  Limit: no pixel differs."""
+    sd = make_scene(size, size, device=DEV)
+    th, tw = dispatch.DEFAULT_TILE
+    packed = tris_kernel.pack_tri_table(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+              bounces=sd.config.bounces,
+              normalize_defocus_dir=sd.config.normalize_defocus_dir,
+              flags=dispatch.trace_flags(sd.config), th=th, tw=tw)
+    color, idx, _ = tris_kernel.render_color_tris_wave_record(
+        packed, cam_row, 1000, **kw)
+    render = tris_kernel.render_color_tris_wave(
+        packed, cam_row, torch.tensor([1000], dtype=torch.int32, device=DEV),
+        sort_every=1, skip_last_sort=False, key_mode="morton", **kw)[0]
+    return dict(case=sd.name, size=size, bounces=kw["bounces"],
+                color_pixels_differ=_diff(_planes(color), _planes(render))[1],
+                hits_per_bounce=[float((p >= 0).float().mean()) for p in idx])
+
+
+def phase_kernels_record():
+    """K10a and K10b against their plain versions on lucy at 512x512, the
+    fits' shape (limit bit-equal, index planes included), and the
+    recorder's color against the render path's on lucy and dragon."""
+    t0 = time.perf_counter()
+    records = compare_wave_record(scenes.scene_lucy, KERNEL_SIZE, reps=5)
+    colors = [compare_record_color(make, KERNEL_SIZE)
+              for make in (scenes.scene_lucy, scenes.scene_dragon)]
+    say(phase="kernels", kernels=["wave_record", "wave_record_bounce"],
+        limit="bit-equal: max_abs_err 0, no ray and no index entry differs; "
+              "recorder color == render_color_tris_wave(sort_every=1, "
+              "morton) color", results=records, recorder_color=colors,
+        seconds=time.perf_counter() - t0)
+    _require_bit_equal(records)
+    bad = [c for c in colors if c["color_pixels_differ"] != 0.0]
+    if bad:
+        raise SystemExit(f"the recorder's color differs from the render "
+                         f"path's: {bad}")
+    return records
+
+
+def phase_oracle():
+    """The oracle backend on the card: ``rt_torch.cli --oracle`` renders
+    once; the ``tests/golden_tris`` images under today's bounds; whether
+    the two dielectric sphere scenes come under the oracle bound of
+    0.05 % (recorded, not a gate); one frame of scene 1 and of Suzanne
+    timed; no kernel launched."""
+    t0 = time.perf_counter()
+    dispatch.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "oracle.ppm")
+        rc = cli.main(["--scene", "5", "--oracle", "--frames", "1",
+                       "--size", "128x128", "-o", out])
+        cli_ok = rc == 0 and os.path.getsize(out) > 128 * 128 * 3
+    diffs = {name: goldens.oracle_diff_pct(name, DEV, backend="oracle")
+             for name in goldens.ORACLE_GOLDENS}
+    bounds = {name: g.bound_pct for name, g in goldens.ORACLE_GOLDENS.items()}
+    timed = [measure.run_oracle("sphere_simple", frames=2),
+             measure.run_oracle("suzanne", frames=1)]
+    launches = {k: v for k, v in dispatch.launch_counts().items() if v}
+    over = {k: v for k, v in diffs.items() if not v <= bounds[k]}
+    ok = (cli_ok and not over and not launches
+          and all(t["image_finite"] for t in timed))
+    say(phase="oracle", ok=ok, cli_ok=cli_ok, bound_pct=bounds,
+        diff_pct=diffs, dielectric_under_oracle_bound={
+            k: diffs[k] <= goldens.ORACLE_BOUND_PCT
+            for k in ("cover", "rtiow_three_spheres")},
+        timed=timed, kernel_launches=launches,
+        seconds=time.perf_counter() - t0)
+    if not ok:
+        raise SystemExit("oracle: the CLI failed, an image is over its "
+                         f"bound ({over}), an image is not finite, or a "
+                         f"kernel was launched ({launches})")
+
+
 def phase_kernels_new():
     """K4, K5, K6 against their plain versions at the shapes the render
     phase gives them, and K3 in the two stream states the second slice's
@@ -626,19 +792,27 @@ def phase_render():
 def phase_train():
     """Every path of ``measure.FITS`` through ``fit_replay``, with the
     launch counts set to 0 just before the fit and read just after.
-    Returns the recorders' launches."""
+    Returns, for each recorder kernel, its launches in the first fit that
+    runs it."""
     launches = {}
     for name, f in measure.FITS.items():
+        t0 = time.perf_counter()
         r = measure.run_fit(name)
         records = -(-f.steps // f.rerecord_every)
+        want = {f.kernel: records}
+        if f.kernel == "wave_record":
+            # one K10b launch for every bounce after the first
+            want["wave_record_bounce"] = records * (r["bounces"] - 1)
         ok = (r["losses_finite"] and r["last_loss"] < 0.1 * r["first_loss"]
-              and r["launches"][f.kernel] == records)
-        say(phase="train", ok=ok, expected_records=records, **r)
+              and all(r["launches"][k] == v for k, v in want.items()))
+        say(phase="train", ok=ok, expected_launches=want,
+            seconds=time.perf_counter() - t0, **r)
         if not ok:
             raise SystemExit(f"train {name}: a loss is not finite, the last "
                              "loss is not below a tenth of the first, or the "
-                             f"recorder was not launched {records} times")
-        launches[f.kernel] = r["launches"][f.kernel]
+                             f"recorder's launches are not {want}")
+        for k in want:
+            launches.setdefault(k, r["launches"][k])
     return launches
 
 
@@ -684,7 +858,9 @@ def main():
     # launch.  The plain versions loop over every chunk and triangle in
     # Python, about half a minute each at this size
     records += phase_kernels(scenes.scene_dragon, KERNEL_SIZE, (1,), reps=3)
+    records += phase_kernels_record()
     phase_golden()
+    phase_oracle()
 
     # one entry per kernel: timed where the Suzanne path (K2, K3: 2 fused
     # bounces on the sorted stream after bounce 0) or its own path launches

@@ -3,13 +3,15 @@
 Usage:
     python -m rt_torch.cli --scene 5 --frames N --size WxH -o out.ppm
                            [--spp S] [--seed N] [--device cpu] [--mono]
-                           [--time-step MS] [--start-time T]
+                           [--oracle] [--time-step MS] [--start-time T]
 
 Renders a scene (1 sphere_simple, 2 sphere_globe, 3 quad, 4 cube, 5 suzanne,
 6 lucy, 7 dragon, 8 sphere_cover; another id gives scene 1) progressively
 and writes a PPM.  The default device is ``cuda``: the hand-written kernels are
 compiled at first use.  ``--device cpu`` runs their plain PyTorch versions
-(slow; meant for small sizes).
+(slow; meant for small sizes).  ``--oracle`` renders through the oracle
+backend instead of the kernels: plain tensor code, every sphere or the BVH
+walk per bounce, on the same device.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def parse_args(argv=None):
     p.add_argument("--mono", action="store_true",
                    help="triangle scenes: one whole-frame kernel launch per "
                         "frame instead of the wavefront stream")
+    p.add_argument("--oracle", action="store_true",
+                   help="render through the oracle backend (plain tensor "
+                        "code, no kernel) instead of the kernels")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the randomised globe scene (scene 2)")
     return p.parse_args(argv)
@@ -62,9 +67,13 @@ def main(argv=None) -> int:
     if args.mono:
         sd = dataclasses.replace(sd, config=dataclasses.replace(
             sd.config, tris_path="mono"))
+    if args.oracle:
+        sd = dataclasses.replace(sd, config=dataclasses.replace(
+            sd.config, backend="oracle"))
     spp = sd.config.samples_per_frame
     print(f"scene {args.scene} ({sd.name}), {w}x{h}, {args.frames} frames, "
-          f"bounces={sd.config.bounces}, spp={spp}, device={args.device}",
+          f"bounces={sd.config.bounces}, spp={spp}, device={args.device}, "
+          f"backend={sd.config.backend}",
           file=sys.stderr)
     r = ProgressiveRenderer(sd, device=args.device)
     r.set_time(args.start_time)

@@ -18,6 +18,7 @@ BOUNCE_MAX_TRIS = 5
 EPSILON_SPHERE = 1e-6
 EPSILON_TRIS = 1e-4
 FLT_MAX = 3.40282e38      # the shader's own constant, NOT float32 max
+BVH_MAX_STEPS = 600       # the stackless BVH walk's step cap
 MAX_SPHERES = 100         # the reference's sphere buffer is always this long
 
 MAT_LAMBERTIAN = 1
@@ -29,10 +30,14 @@ MAT_DIELECTRIC = 3
 class RenderConfig:
     """Render parameters.
 
-    There is no ``backend`` field: the device of the tensors decides.  On a
-    CUDA device the hand-written Hopper kernels run; on the CPU their plain
-    PyTorch versions do.  The two compute the same image bit for bit at the
-    same ``tile``.
+    backend — ``"kernels"`` (default) or ``"oracle"``.  With the kernels,
+        the device of the tensors decides: on a CUDA device the
+        hand-written Hopper kernels run; on the CPU their plain PyTorch
+        versions do, and the two compute the same image bit for bit at the
+        same ``tile``.  The oracle (``render.oracle``, the counterpart of
+        the JAX package's default ``backend="jax"``) is plain tensor code
+        on whichever device the scene lies: every sphere, or the stackless
+        BVH walk over the triangles, per bounce.
     tris_path — ``"wave"`` (default: the sorted wavefront stream) or
         ``"mono"`` (one whole-frame launch per frame, the counterpart of the
         JAX package's ``backend="pallas_mono"``), for triangle scenes.
@@ -60,6 +65,7 @@ class RenderConfig:
     sky_from_final_dir: bool = False
     tile: tuple | None = None
     tris_path: str = "wave"
+    backend: str = "kernels"
 
     @staticmethod
     def for_spheres(width: int = 512, height: int = 512,

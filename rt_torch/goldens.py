@@ -87,12 +87,14 @@ def diff_pct(sd, frames: int, folder: str, name: str, device) -> float:
         return compare_ppm(render_ppm(r.image), f.read(), 100.0)[1]
 
 
-def oracle_diff_pct(name: str, device, tris_path: str = "wave") -> float:
-    """tris_path: the triangle path the frames take (``RenderConfig``)."""
+def oracle_diff_pct(name: str, device, tris_path: str = "wave",
+                    backend: str = "kernels") -> float:
+    """tris_path, backend: the triangle path the frames take and the
+    backend that renders them (``RenderConfig``)."""
     g = ORACLE_GOLDENS[name]
     sd = getattr(scenes, g.make_scene)(g.size, g.size, device=device)
     sd = dataclasses.replace(sd, config=dataclasses.replace(
-        sd.config, tris_path=tris_path))
+        sd.config, tris_path=tris_path, backend=backend))
     return diff_pct(sd, g.frames, "golden_tris", name, device)
 
 

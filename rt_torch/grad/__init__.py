@@ -1,17 +1,24 @@
-"""Inverse rendering: parameters, loss, path-replay gradients and the
-record -> replay -> Adam loop — counterpart of ``rt/grad`` (``params``,
-``loss``, ``replay``, ``train.fit_replay``)."""
+"""Inverse rendering: parameters, loss, path-replay gradients, the full
+differentiable renderer, the finite-difference check and the training
+loops — counterpart of ``rt/grad`` (``params``, ``loss``, ``replay``,
+``diff_render``, ``fd``, ``train``)."""
 
+from rt_torch.grad.diff_render import (render_color_diff, render_image_diff,
+                                       trace_diff)
+from rt_torch.grad.fd import finite_difference_check
 from rt_torch.grad.loss import golden_mae_percent, image_mse
 from rt_torch.grad.params import (CameraParams, SphereParams, TriangleParams,
                                   apply_params, apply_tri_params,
                                   camera_from_params, look_at)
-from rt_torch.grad.replay import record_hits, replay_color, replay_loss_fn
-from rt_torch.grad.train import fit_replay
+from rt_torch.grad.replay import (record_hits, record_hits_oracle,
+                                  replay_color, replay_loss_fn)
+from rt_torch.grad.train import fit, fit_replay, make_train_step
 
 __all__ = [
     "CameraParams", "SphereParams", "TriangleParams", "apply_params",
     "apply_tri_params", "camera_from_params", "look_at", "image_mse",
-    "golden_mae_percent", "record_hits", "replay_color", "replay_loss_fn",
-    "fit_replay",
+    "golden_mae_percent", "record_hits", "record_hits_oracle",
+    "replay_color", "replay_loss_fn", "render_color_diff",
+    "render_image_diff", "trace_diff", "finite_difference_check", "fit",
+    "fit_replay", "make_train_step",
 ]

@@ -4,10 +4,12 @@ The expensive part of the forward render is FINDING the hits (intersection
 scans, chunk-culled traversal), but the hit decisions are discrete and
 detached from gradients anyway.  So:
 
-1. **Record** (a CUDA kernel on the card): the recording kernels
-   (``render_color_spheres_record`` / ``render_color_tris_record``) write
+1. **Record** (CUDA kernels on the card): the recording kernels
+   (``render_color_spheres_record``, ``render_color_tris_record``, and the
+   sorted-stream ``render_color_tris_wave_record`` for large meshes) write
    the winning primitive's index per pixel and bounce (-1 on a miss) beside
-   the color — the whole Monte-Carlo path structure of the frame.
+   the color — the whole Monte-Carlo path structure of the frame.  The
+   oracle records the same without a kernel (``record_hits_oracle``).
 2. **Replay** (plain tensor code, differentiable): recompute the transport
    with the hit sequence FROZEN — per bounce, fetch the known primitive's
    row and recompute (t, normal, scatter) directly.  The cost is O(pixels x
@@ -26,20 +28,21 @@ a scatter-add into the table.
 from __future__ import annotations
 
 import torch
-from torch.nn.functional import embedding
 from torch.utils.checkpoint import checkpoint
 
 from rt_torch.config import EPSILON_TRIS, RenderConfig
 from rt_torch.core import camera as camera_mod
 from rt_torch.core import vecmath as vm
+from rt_torch.core.hits import gather_rows
 from rt_torch.core.materials import scatter
 from rt_torch.core.sphere import SphereArray, intersect_sphere_t
-from rt_torch.core.trace import sky_color
+from rt_torch.core.trace import sky_color, trace
 from rt_torch.grad.loss import image_mse
 from rt_torch.grad.params import (SphereParams, apply_params,
                                   apply_tri_params, camera_from_params,
                                   host_camera)
 from rt_torch.kernels import dispatch, sphere_kernel, tris_kernel
+from rt_torch.render import oracle
 
 # ---------------------------------------------------------------------------
 # Recording
@@ -49,13 +52,14 @@ from rt_torch.kernels import dispatch, sphere_kernel, tris_kernel
 def record_hits(scene, camera, config: RenderConfig, time, device="cuda",
                 tris_backend: str = "auto"):
     """(color (H, W, 3), hits (bounces, H, W) int32 scene-order primitive
-    ids, -1 on a miss) from the recording kernels: one launch on a card,
-    their plain versions on the CPU.
+    ids, -1 on a miss) from the recording kernels on a card, their plain
+    versions on the CPU.
 
-    tris_backend: ``"mono"`` (the single-launch recorder) or ``"auto"``
-    (mono up to the 8192 triangles at which the render dispatch changes
-    branch).  The sorted-stream recorder for larger meshes (``"wave"``, and
-    ``"auto"`` above 8192 triangles) is not ported yet.
+    tris_backend: ``"mono"`` (the single-launch recorder, K9), ``"wave"``
+    (the sorted-stream recorder, K10a then one K10b per bounce: what makes
+    lucy- and dragon-sized meshes recordable) or ``"auto"`` (wave above the
+    8192 triangles at which the render dispatch changes branch, mono up to
+    them).
     """
     geo = dispatch.frame_geometry(config)
     common = dict(bounces=config.bounces,
@@ -75,19 +79,17 @@ def record_hits(scene, camera, config: RenderConfig, time, device="cuda",
         if tris_backend == "auto":
             tris_backend = ("wave" if scene.m > dispatch.SMALL_SCENE_MAX_TRIS
                             else "mono")
-        if tris_backend == "wave":
-            raise NotImplementedError(
-                f"recording a mesh of {scene.m} triangles needs the "
-                "sorted-stream recorder (K10a/K10b, tris_backend='wave'), "
-                "which is not ported yet: see ROADMAP.md, queue 2")
-        if tris_backend != "mono":
+        if tris_backend not in ("mono", "wave"):
             raise ValueError(f"tris_backend {tris_backend!r}: auto, mono "
                              "or wave")
         dispatch.check_device(scene.a, device)
         with torch.no_grad():
-            packed = dispatch.pack_scene(scene)
-        color, idx_tab, order = tris_kernel.render_color_tris_record(
-            packed, cam_row, int(time), **common)
+            # both recorders pack as the JAX package's do: no split_big
+            packed = tris_kernel.pack_tri_table(scene)
+        record = (tris_kernel.render_color_tris_wave_record
+                  if tris_backend == "wave"
+                  else tris_kernel.render_color_tris_record)
+        color, idx_tab, order = record(packed, cam_row, int(time), **common)
         # rows of the Morton-clustered table back to scene triangle ids
         safe = torch.clamp(idx_tab, min=0).long()
         idx = torch.where(idx_tab >= 0, order[safe].to(torch.int32), -1)
@@ -96,19 +98,30 @@ def record_hits(scene, camera, config: RenderConfig, time, device="cuda",
     return color.permute(1, 2, 0)[:h, :w], idx[:, :h, :w]
 
 
+def record_hits_oracle(scene, camera, config: RenderConfig, time,
+                       device="cuda"):
+    """(color (H, W, 3), hits (bounces, H, W) int32 scene-order primitive
+    ids, -1 on a miss) through the oracle (``render.oracle``): every
+    sphere, or the BVH walk, per bounce, plain tensor code on ``device``.
+    The counterpart of the JAX package's ``record_hits_oracle``."""
+    dispatch.check_device(scene[0], device)
+    intersect, hit_rec = oracle.scene_functions(scene)
+    hits = []
+    with torch.no_grad():
+        state, origin, direction = camera_mod.generate_primary_rays(
+            camera, config.width, config.height, time,
+            config.normalize_defocus_dir, device=device)
+        _, color = trace(intersect, hit_rec, state, origin, direction,
+                         bounces=config.bounces,
+                         normalize_reflect_in=config.normalize_reflect_in,
+                         sky_from_final_dir=config.sky_from_final_dir,
+                         hits=hits)
+    return color, torch.stack(hits).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Replay (differentiable)
 # ---------------------------------------------------------------------------
-
-
-def gather_rows(tab, idx):
-    """``tab[idx]`` for a (K, C) table and an integer tensor of row ids, as
-    an embedding lookup.  The forward pass is the same index gather; the
-    backward pass must add millions of pixels' cotangents into a handful of
-    rows, and the indexing operator's own backward (``index_put_`` with
-    accumulate) walks the duplicates of a row one by one, while the
-    embedding's sorts the ids and sums them by segments."""
-    return embedding(idx.long(), tab)
 
 
 def _sphere_replay_table(scene):

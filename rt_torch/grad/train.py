@@ -1,24 +1,28 @@
-"""The inverse-rendering loop: recover material (and camera or vertex)
+"""The inverse-rendering loops: recover material (and camera or vertex)
 parameters from a target image by gradient descent — counterpart of
-``rt/grad/train.py:fit_replay``.
+``rt/grad/train.py``.
 
-A training step is: replay the recorded paths differentiably -> image loss
--> gradients (``torch.autograd``) -> Adam update.
+``fit_replay`` (the production loop): record the paths, then replay them
+differentiably -> image loss -> gradients (``torch.autograd``) -> Adam.
+``fit`` / ``make_train_step``: the same step on the full differentiable
+renderer (``grad.diff_render``), which re-intersects every step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from rt_torch.config import RenderConfig
 from rt_torch.core.sphere import SphereArray
+from rt_torch.grad.diff_render import render_image_diff
 from rt_torch.grad.loss import image_mse
 from rt_torch.grad.params import (SphereParams, TriangleParams, apply_params,
                                   apply_tri_params, camera_from_params)
 from rt_torch.grad.replay import (_gather_tri_rows, _tris_replay_tables,
-                                  record_hits, replay_color)
+                                  record_hits, record_hits_oracle,
+                                  replay_color)
 
 
 def _tri_scene_params(base_scene, scene_fields) -> TriangleParams:
@@ -40,6 +44,84 @@ def _tri_scene_params(base_scene, scene_fields) -> TriangleParams:
     return TriangleParams.from_scene(base_scene, **kwargs)
 
 
+def _adam(params: dict, learning_rate: float) -> torch.optim.Adam:
+    """Adam over the set fields of the parameter tuples, as ``optax.adam``
+    sets it: b1 0.9, b2 0.999, eps 1e-8, no weight decay."""
+    leaves = [v for p in params.values() for v in p if v is not None]
+    return torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.0)
+
+
+def _detached(params: dict) -> dict:
+    return {k: type(p)(*(None if v is None else v.detach() for v in p))
+            for k, p in params.items()}
+
+
+def _apply_scene(base_scene, params: dict):
+    """The base scene with the "scene" entry's set fields over it."""
+    sp = params.get("scene")
+    if sp is None:
+        return base_scene
+    return (apply_tri_params(base_scene, sp) if isinstance(sp, TriangleParams)
+            else apply_params(base_scene, sp))
+
+
+def make_train_step(base_scene, base_camera, config: RenderConfig,
+                    times: Sequence[int], optimizer: torch.optim.Optimizer,
+                    *, remat: bool = True) -> Callable:
+    """The step on the full differentiable renderer: ``step(params,
+    target) -> loss`` renders ``times`` progressively
+    (``render_image_diff``), takes the image MSE, back-propagates and lets
+    ``optimizer`` (built over the parameters' leaves) update them in place.
+
+    ``params`` is a dict with optional keys "scene" (SphereParams or
+    TriangleParams) and "camera" (CameraParams) of leaf tensors; absent keys
+    stay at the base values."""
+    times = tuple(int(t) for t in times)
+
+    def step(params: dict, target) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        camera = camera_from_params(params.get("camera"), base_camera)
+        img = render_image_diff(_apply_scene(base_scene, params), camera,
+                                config, times, remat=remat)
+        loss = image_mse(img, target)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def fit(base_scene, base_camera, config: RenderConfig, target,
+        *, times: Sequence[int] = (1000,), steps: int = 200,
+        learning_rate: float = 2e-2, optimize_scene: bool = True,
+        optimize_camera: bool = False,
+        scene_fields=dict(albedo=True, mat_param=False),
+        init_params: Optional[dict] = None, remat: bool = True,
+        log_every: int = 0, device="cuda"):
+    """The recovery loop on the full differentiable renderer; returns
+    (params dict, losses list).  Adam as in ``fit_replay``."""
+    params = dict(init_params) if init_params else {}
+    if optimize_scene and "scene" not in params:
+        params["scene"] = (
+            SphereParams.from_scene(base_scene, **scene_fields)
+            if isinstance(base_scene, SphereArray)
+            else _tri_scene_params(base_scene, scene_fields))
+    if optimize_camera and "camera" not in params:
+        raise ValueError("optimize_camera requires init_params['camera'] "
+                         "(a CameraParams initial guess)")
+    params = _as_leaves(params, device)
+    step = make_train_step(base_scene, base_camera, config, times,
+                           _adam(params, learning_rate), remat=remat)
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    losses = []
+    for i in range(steps):
+        losses.append(float(step(params, target)))
+        if log_every and (i + 1) % log_every == 0:
+            print(f"  step {i + 1}/{steps}: loss {losses[-1]:.6g}")
+    return _detached(params), losses
+
+
 def _as_leaves(params: dict, device) -> dict:
     """A copy of the parameter tuples whose set fields are fresh leaf
     tensors on ``device`` that require a gradient (the caller's tensors are
@@ -54,12 +136,16 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
                rerecord_every: int = 20, learning_rate: float = 2e-2,
                scene_fields=dict(albedo=True, mat_param=False),
                init_params: Optional[dict] = None,
-               frozen_geometry: bool = True, log_every: int = 0,
-               loss_weight=None, device="cuda"):
+               frozen_geometry: bool = True, recorder: str = "kernels",
+               log_every: int = 0, loss_weight=None, device="cuda"):
     """Path-replay inverse rendering — the production loop.
 
     Outer loop: record the Monte-Carlo path structure at the current
-    parameters with the recording kernels (``record_hits``).  Inner loop:
+    parameters.  ``recorder``: ``"kernels"`` (``record_hits``: the
+    recording kernels on a card, their plain versions on the CPU; the
+    sorted-stream recorder above 8192 triangles) or ``"oracle"``
+    (``record_hits_oracle``: plain tensor code, the BVH walk for a mesh).
+    Neither is ever swapped for the other.  Inner loop:
     ``rerecord_every`` Adam steps on the frozen-path replay objective; the
     losses stay on the device until the block ends, so the host reads back
     once per block.  Returns (params dict, losses list).
@@ -89,24 +175,20 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
                          "triangle rows, so vertex gradients would be "
                          "silently zero")
 
+    if recorder not in ("kernels", "oracle"):
+        raise ValueError(f"recorder {recorder!r}: kernels or oracle")
+    record = record_hits if recorder == "kernels" else record_hits_oracle
+
     params = _as_leaves(params, device)
-    leaves = [v for p in params.values() for v in p if v is not None]
-    optimizer = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=0.0)
+    optimizer = _adam(params, learning_rate)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
     lw = None
     if loss_weight is not None:
         lw = torch.as_tensor(loss_weight, dtype=torch.float32, device=device)
         lw_norm = torch.sum(lw) * 3.0 + 1e-9
 
-    def apply_scene(p):
-        sp = p["scene"]
-        return (apply_tri_params(base_scene, sp)
-                if isinstance(sp, TriangleParams)
-                else apply_params(base_scene, sp))
-
     def loss_of(p, hits, pre_rows):
-        img = replay_color(apply_scene(p),
+        img = replay_color(_apply_scene(base_scene, p),
                            camera_from_params(p.get("camera"), base_camera),
                            config, time, hits,
                            frozen_geometry=frozen_geometry,
@@ -124,8 +206,8 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
     while done < steps:
         k = min(rerecord_every, steps - done)
         with torch.no_grad():
-            _, hits = record_hits(
-                apply_scene(params),
+            _, hits = record(
+                _apply_scene(base_scene, params),
                 camera_from_params(params.get("camera"), base_camera),
                 config, time, device=device)
             pre_rows = (None if pre_tab is None
@@ -141,5 +223,4 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
         done += k
         if log_every:
             print(f"  step {done}/{steps}: loss {losses[-1]:.6g}")
-    return ({k: type(p)(*(None if v is None else v.detach() for v in p))
-             for k, p in params.items()}, losses)
+    return _detached(params), losses

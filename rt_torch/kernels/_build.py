@@ -34,9 +34,9 @@ _INT = ctypes.c_int
 # C signatures of the launch functions, by source file
 _SIGNATURES = {
     "tris_wave": {
-        "rt_wave_first": ([_PTR] * 6 + [_INT] + [_PTR] * 4 + [_INT] * 14
+        "rt_wave_first": ([_PTR] * 6 + [_INT] + [_PTR] * 5 + [_INT] * 14
                           + [_PTR]),
-        "rt_wave_bounce": ([_PTR] * 8 + [ctypes.c_longlong] + [_INT] * 8
+        "rt_wave_bounce": ([_PTR] * 9 + [ctypes.c_longlong] + [_INT] * 8
                            + [_PTR]),
         "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 8
                            + [_PTR]),

@@ -126,10 +126,4 @@ __device__ int trace_bounce(const Tables& p, const int* __restrict__ order,
     return wch;
 }
 
-__device__ __forceinline__ int trace_bounce(
-        const Tables& p, const int* __restrict__ order, Ray& r) {
-    int unused;
-    return trace_bounce<false>(p, order, r, unused);
-}
-
 }  // namespace rt

@@ -5,12 +5,20 @@
 //   wave_bounce_kernel  replaces rt/kernels/tris_kernel.py:_wave_bounce_kernel
 //                       (n_bounces fused bounces over one tile of the sorted
 //                       ray stream, payload updated in place)
+//   wave_first_kernel<true>, wave_bounce_kernel<true>
+//                       replace the same two with track_idx=True, as
+//                       render_color_tris_wave_record launches them (K10a,
+//                       K10b): the same bounce, and per bounce the winning
+//                       row of the triangle table, -1 on a miss or a dead
+//                       ray, for the path-replay gradients on large meshes.
+//                       The <false> instances are the render kernels as
+//                       they were: the flag only adds the index stores.
 //   wave_raygen_kernel  replaces rt/kernels/tris_kernel.py:_wave_raygen_kernel
 //                       (primary rays only, for more than one sample per
 //                       pixel: every sample's bounces start from them)
 //
-// The first two call one trace_bounce(), as both TPU kernels call
-// _trace_bounce, so they agree per ray.  The raygen kernel calls the same
+// The first two call one trace_bounce() (tris_trace.cuh), as both TPU
+// kernels call _trace_bounce, so they agree per ray.  The raygen kernel calls the same
 // generate_ray() as wave_first_kernel; it writes 8 words per pixel and is
 // bound by bytes.
 //
@@ -30,7 +38,8 @@
 // Bound: operations.  The scan does ~47 f32 operations per (ray, triangle)
 // pair on 52 bytes of triangle that the whole block reads at one address (a
 // broadcast served from L1), while the payload is 23 words per ray per
-// launch.  No shared-memory staging or tensor-core use yet; see PERF.md.
+// launch (the recorder writes one more word per ray and bounce).  No
+// shared-memory staging or tensor-core use yet; see PERF.md.
 //
 // Built with -fmad=false: the plain version rounds every multiply and add,
 // so the kernel must not contract them.
@@ -44,12 +53,16 @@ namespace rt {
 
 // grid (Wp/tw, Hp/th, F), block th*tw.  Outputs are (F*Hp, Wp) planes in
 // image order; payf holds 10 of them: o(3) d(3) atten(3) primary_dy.
+// TRACK_IDX (the recorder, K10a): idx_out gets the winning row of the
+// triangle table, -1 on a miss; unused without it.
+template <bool TRACK_IDX>
 __global__ void wave_first_kernel(
         Tables p, const int* __restrict__ order, CameraRow cam,
         const uint32_t* __restrict__ times, int row0, int height, int width,
         int height_pad, int width_pad, int tw, int normalize_defocus_dir,
         float* __restrict__ payf, uint32_t* __restrict__ state_out,
-        int* __restrict__ active_out, int* __restrict__ wch_out) {
+        int* __restrict__ active_out, int* __restrict__ wch_out,
+        int* __restrict__ idx_out) {
     const int ly = threadIdx.x / tw, lx = threadIdx.x % tw;
     const int th = blockDim.x / tw;
     const int row = blockIdx.y * th + ly;
@@ -64,7 +77,8 @@ __global__ void wave_first_kernel(
     const float primary_dy = r.d.y;
     r.atten = {1.0f, 1.0f, 1.0f};
     r.active = 1;
-    const int wch = trace_bounce(p, order, r);
+    int tid;
+    const int wch = trace_bounce<TRACK_IDX>(p, order, r, tid);
 
     payf[0 * n + i] = r.o.x;
     payf[1 * n + i] = r.o.y;
@@ -79,6 +93,7 @@ __global__ void wave_first_kernel(
     state_out[i] = r.state;
     active_out[i] = r.active;
     wch_out[i] = wch;
+    if (TRACK_IDX) idx_out[i] = tid;
 }
 
 // grid (Wp/tw, Hp/th, F), block th*tw, as wave_first_kernel.  od holds 6
@@ -112,10 +127,15 @@ __global__ void wave_raygen_kernel(
 
 // grid n / tile, block tile.  pay is (9, n): o(3) d(3) atten(3); pay, state
 // and active are updated in place.  tile_order is (n_tiles * n_chunks).
+// TRACK_IDX (the recorder, K10b): idx_out is (n_bounces, n) and plane b gets
+// bounce b's winning row of the triangle table, -1 on a miss, on a dead ray
+// and in every bounce a tile skipped; unused without it.
+template <bool TRACK_IDX>
 __global__ void wave_bounce_kernel(
         Tables p, const int* __restrict__ tile_order, size_t n, int n_bounces,
         float* __restrict__ pay, uint32_t* __restrict__ state,
-        int* __restrict__ active, int* __restrict__ wch_out) {
+        int* __restrict__ active, int* __restrict__ wch_out,
+        int* __restrict__ idx_out) {
     const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     const int* order = tile_order + (size_t)blockIdx.x * p.n_chunks;
 
@@ -127,12 +147,19 @@ __global__ void wave_bounce_kernel(
     r.active = active[i];
 
     int wch = -1;
-    for (int b = 0; b < n_bounces; ++b) {
+    int b = 0;
+    for (; b < n_bounces; ++b) {
         // whole-tile skip: sorted dead rays cluster into all-dead tiles,
         // and a tile with no live ray stays so for the remaining bounces
         if (!__syncthreads_or(r.active > 0)) break;
-        wch = trace_bounce(p, order, r);
+        int tid;
+        wch = trace_bounce<TRACK_IDX>(p, order, r, tid);
+        if (TRACK_IDX) idx_out[b * n + i] = tid;
     }
+    // the planes of the bounces the tile skipped: what the TPU kernel's dead
+    // lanes write
+    if (TRACK_IDX)
+        for (; b < n_bounces; ++b) idx_out[b * n + i] = -1;
 
     pay[0 * n + i] = r.o.x;
     pay[1 * n + i] = r.o.y;
@@ -152,14 +179,15 @@ __global__ void wave_bounce_kernel(
 
 // ---- plain C interface (loaded with ctypes) ---------------------------------
 // Pointers are device pointers except ``cam`` (20 host floats).  Each function
-// launches on ``stream`` and returns cudaGetLastError() as an int.
+// launches on ``stream`` and returns cudaGetLastError() as an int.  ``idx``
+// non-null launches the recording instance (K10a, K10b), null the render one.
 
 extern "C" int rt_wave_first(
         const float* tab, const float* mats, const float* chunks,
         const int* order, const float* cam, const uint32_t* times, int row0,
-        float* payf, uint32_t* state, int* active, int* wch, int n_chunks,
-        int chunk, int n_mats, int height, int width, int height_pad,
-        int width_pad, int n_frames, int th, int tw,
+        float* payf, uint32_t* state, int* active, int* wch, int* idx,
+        int n_chunks, int chunk, int n_mats, int height, int width,
+        int height_pad, int width_pad, int n_frames, int th, int tw,
         int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
         int has_dielectric, void* stream) {
     rt::Tables p = {tab, mats, chunks, n_chunks, chunk, n_mats,
@@ -167,23 +195,37 @@ extern "C" int rt_wave_first(
     rt::CameraRow row;
     for (int c = 0; c < 20; ++c) row.v[c] = cam[c];
     dim3 grid(width_pad / tw, height_pad / th, n_frames);
-    rt::wave_first_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
-        p, order, row, times, row0, height, width, height_pad, width_pad, tw,
-        normalize_defocus_dir, payf, state, active, wch);
+    if (idx)
+        rt::wave_first_kernel<true><<<grid, th * tw, 0,
+                                      (cudaStream_t)stream>>>(
+            p, order, row, times, row0, height, width, height_pad, width_pad,
+            tw, normalize_defocus_dir, payf, state, active, wch, idx);
+    else
+        rt::wave_first_kernel<false><<<grid, th * tw, 0,
+                                       (cudaStream_t)stream>>>(
+            p, order, row, times, row0, height, width, height_pad, width_pad,
+            tw, normalize_defocus_dir, payf, state, active, wch, nullptr);
     return (int)cudaGetLastError();
 }
 
 extern "C" int rt_wave_bounce(
         const float* tab, const float* mats, const float* chunks,
         const int* tile_order, float* pay, uint32_t* state, int* active,
-        int* wch, long long n, int tile, int n_bounces, int n_chunks,
-        int chunk, int n_mats, int normalize_reflect_in, int has_metal,
-        int has_dielectric, void* stream) {
+        int* wch, int* idx, long long n, int tile, int n_bounces,
+        int n_chunks, int chunk, int n_mats, int normalize_reflect_in,
+        int has_metal, int has_dielectric, void* stream) {
     rt::Tables p = {tab, mats, chunks, n_chunks, chunk, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
-    rt::wave_bounce_kernel<<<(unsigned)(n / tile), tile, 0,
-                             (cudaStream_t)stream>>>(
-        p, tile_order, (size_t)n, n_bounces, pay, state, active, wch);
+    const unsigned grid = (unsigned)(n / tile);
+    if (idx)
+        rt::wave_bounce_kernel<true><<<grid, tile, 0, (cudaStream_t)stream>>>(
+            p, tile_order, (size_t)n, n_bounces, pay, state, active, wch,
+            idx);
+    else
+        rt::wave_bounce_kernel<false><<<grid, tile, 0,
+                                        (cudaStream_t)stream>>>(
+            p, tile_order, (size_t)n, n_bounces, pay, state, active, wch,
+            nullptr);
     return (int)cudaGetLastError();
 }
 

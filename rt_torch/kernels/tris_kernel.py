@@ -2,8 +2,9 @@
 (``_morton_order``, ``pack_tri_table``, ``_trace_bounce``, ``_ray_sort_key``,
 the first/bounce/raygen wave kernels and ``render_color_tris_wave`` with the
 ``lean`` payload, ``chunk_oct`` and ``morton`` coherence keys and any number
-of samples per pixel; the monolithic ``render_color_tris`` and its recording
-variant ``render_color_tris_record``).
+of samples per pixel; the sorted-stream recorder
+``render_color_tris_wave_record``; the monolithic ``render_color_tris`` and
+its recording variant ``render_color_tris_record``).
 
 Three kernels carry the wavefront path, each a hand-written CUDA kernel
 (``csrc/tris_wave.cu``) with a plain PyTorch version beside it:
@@ -14,6 +15,10 @@ Three kernels carry the wavefront path, each a hand-written CUDA kernel
   consecutive rays of the sorted stream, payload updated in place;
 - ``wave_raygen`` — primary rays only (more than one sample per pixel:
   every sample's bounces then start from them, through ``wave_bounce``).
+
+With ``track_idx`` the first two are the recorder's K10a and K10b
+(``LAUNCHES["wave_record"]``, ``["wave_record_bounce"]``): the same bounce,
+and per bounce the winning row of the triangle table (-1 on a miss).
 
 Two more trace a whole frame in one launch (``csrc/tris_mono.cu``), with the
 same bounce (``trace_bounce`` here, ``csrc/tris_trace.cuh`` there):
@@ -59,8 +64,10 @@ assert 3 * KEY_BITS + 3 <= 31
 _EPS = float(np.float32(EPSILON_TRIS))
 _FLT_MAX = float(np.float32(FLT_MAX))
 
+# the recorder's two (K10a, K10b) count apart from the render ones
 LAUNCHES = {"wave_first": 0, "wave_bounce": 0, "wave_raygen": 0,
-            "tris_mono": 0, "tris_record": 0}
+            "tris_mono": 0, "tris_record": 0, "wave_record": 0,
+            "wave_record_bounce": 0}
 
 
 class PackedScene(NamedTuple):
@@ -321,7 +328,8 @@ def primary_rays(cam_row, times, row0: int, *, height: int, width: int,
 def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
                      flags: TraceFlags, *, height: int, width: int,
                      height_pad: int, width_pad: int, th: int, tw: int,
-                     normalize_defocus_dir: bool, scan_counts=None):
+                     normalize_defocus_dir: bool, track_idx: bool = False,
+                     scan_counts=None):
     """Plain version of ``wave_first`` (same arguments, same results)."""
     _check_tile(th, tw, height_pad, width_pad)
     n_frames = times.shape[0]
@@ -346,11 +354,13 @@ def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
     carry = (state, o, d, (one, one, one),
              torch.ones_like(state, dtype=torch.int32))
     tile_order = order.to(torch.int64).reshape(1, -1).expand(n_tiles, -1)
-    state, o, d, atten, active, wch = trace_bounce(
-        packed, tile_order, carry, flags, scan_counts=scan_counts)
+    state, o, d, atten, active, wch, *idx = trace_bounce(
+        packed, tile_order, carry, flags, scan_counts=scan_counts,
+        track_idx=track_idx)
 
     payf = torch.stack([untiled(p) for p in (*o, *d, *atten, primary_dy)])
-    return (payf, rng.to_i32(untiled(state)), untiled(active), untiled(wch))
+    return (payf, rng.to_i32(untiled(state)), untiled(active), untiled(wch),
+            *(untiled(x) for x in idx))
 
 
 def wave_raygen_plain(cam_row, times, row0: int, *, height: int, width: int,
@@ -368,9 +378,10 @@ def wave_raygen_plain(cam_row, times, row0: int, *, height: int, width: int,
 
 def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
                       flags: TraceFlags, *, n_bounces: int, th: int, tw: int,
-                      scan_counts=None):
+                      track_idx: bool = False, scan_counts=None):
     """Plain version of ``wave_bounce``: updates pay/state/active in place
-    and returns the last fused bounce's winning-chunk plane."""
+    and returns the last fused bounce's winning-chunk plane (and with
+    ``track_idx`` the index planes)."""
     n = state.shape[0]
     tile = th * tw
     if n % tile:
@@ -384,18 +395,25 @@ def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
              active.reshape(n_tiles, tile))
     wch = torch.full((n_tiles, tile), -1, dtype=torch.int32,
                      device=state.device)
+    planes = []
     for _ in range(n_bounces):
         # a tile with no live ray is skipped by the kernel; here its lanes
         # pass through trace_bounce unchanged (no chunk is live for it)
-        # except the chunk plane, which the skip leaves as it was
+        # except the chunk plane, which the skip leaves as it was; its
+        # index plane is -1, as trace_bounce gives a dead ray
         tile_alive = (carry[4] > 0).any(dim=1, keepdim=True)
-        *carry, new_wch = trace_bounce(packed, order, tuple(carry), flags,
-                                       scan_counts=scan_counts)
-        wch = torch.where(tile_alive, new_wch, wch)
+        out = trace_bounce(packed, order, tuple(carry), flags,
+                           scan_counts=scan_counts, track_idx=track_idx)
+        carry = out[:5]
+        wch = torch.where(tile_alive, out[5], wch)
+        if track_idx:
+            planes.append(out[6].reshape(n))
     s, o, d, atten, act = carry
     pay.copy_(torch.stack([*o, *d, *atten]).reshape(9, n))
     state.copy_(rng.to_i32(s).reshape(n))
     active.copy_(act.reshape(n))
+    if track_idx:
+        return wch.reshape(n), torch.stack(planes)
     return wch.reshape(n)
 
 
@@ -437,7 +455,7 @@ def _require_tables(packed: PackedScene, chunk: int):
 def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
                flags: TraceFlags, *, height: int, width: int,
                height_pad: int, width_pad: int, th: int, tw: int,
-               normalize_defocus_dir: bool):
+               normalize_defocus_dir: bool, track_idx: bool = False):
     """Raygen fused with bounce 0 for F frames of (height_pad, width_pad)
     pixels (rows beyond ``height`` and columns beyond ``width`` are padding
     pixels, traced like any other).
@@ -446,12 +464,15 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
     cam_row: (1, 20) f32 on the host.  times: (F,) int32 u32 bit patterns.
     Returns (payf (10, n) f32: o, d, atten, primary_dy; state (n,) int32;
     active (n,) int32; winning chunk (n,) int32), n = F*Hp*Wp in image order.
+    track_idx (the recorder, K10a): one more (n,) int32 plane, the winning
+    row of the triangle table, -1 on a miss.
     """
     if packed.tab.device.type == "cpu":
         return wave_first_plain(
             packed, order, cam_row, times, row0, flags, height=height,
             width=width, height_pad=height_pad, width_pad=width_pad, th=th,
-            tw=tw, normalize_defocus_dir=normalize_defocus_dir)
+            tw=tw, normalize_defocus_dir=normalize_defocus_dir,
+            track_idx=track_idx)
     from rt_torch.kernels import _build
 
     _check_tile(th, tw, height_pad, width_pad)
@@ -466,6 +487,8 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
     state = torch.empty((n,), dtype=torch.int32, device=dev)
     active = torch.empty((n,), dtype=torch.int32, device=dev)
     wch = torch.empty((n,), dtype=torch.int32, device=dev)
+    idx = (torch.empty((n,), dtype=torch.int32, device=dev) if track_idx
+           else None)
     cam = _cam_array(cam_row)
 
     lib = _build.load()
@@ -473,14 +496,16 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
         packed.tab.data_ptr(), packed.mats.data_ptr(),
         packed.chunks.data_ptr(), order.data_ptr(), cam.ctypes.data,
         times.data_ptr(), row0, payf.data_ptr(), state.data_ptr(),
-        active.data_ptr(), wch.data_ptr(), packed.n_chunks, CHUNK,
+        active.data_ptr(), wch.data_ptr(),
+        None if idx is None else idx.data_ptr(), packed.n_chunks, CHUNK,
         packed.mats.shape[0], height, width, height_pad, width_pad, n_frames,
         th, tw, int(normalize_defocus_dir), int(flags.normalize_reflect_in),
         int(flags.has_metal), int(flags.has_dielectric),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "wave_first")
-    LAUNCHES["wave_first"] += 1
-    return payf, state, active, wch
+    name = "wave_record" if track_idx else "wave_first"
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return (payf, state, active, wch) + ((idx,) if track_idx else ())
 
 
 def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
@@ -524,18 +549,23 @@ def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
 
 
 def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
-                flags: TraceFlags, *, n_bounces: int, th: int, tw: int):
+                flags: TraceFlags, *, n_bounces: int, th: int, tw: int,
+                track_idx: bool = False):
     """``n_bounces`` fused bounces over the ray stream, one tile of th*tw
     consecutive rays per block.  pay (9, n) f32, state (n,) int32 and active
     (n,) int32 are UPDATED IN PLACE.
 
     tile_order: (n_tiles * n_chunks,) int32, each tile's chunk visit order.
     Returns the winning-chunk plane (n,) int32 of the last bounce a tile
-    ran (-1 on a miss or a dead ray).
+    ran (-1 on a miss or a dead ray).  track_idx (the recorder, K10b):
+    returns (that plane, index planes (n_bounces, n) int32: per bounce the
+    winning row of the triangle table, -1 on a miss, a dead ray or a
+    skipped tile).
     """
     if packed.tab.device.type == "cpu":
         return wave_bounce_plain(packed, tile_order, pay, state, active,
-                                 flags, n_bounces=n_bounces, th=th, tw=tw)
+                                 flags, n_bounces=n_bounces, th=th, tw=tw,
+                                 track_idx=track_idx)
     from rt_torch.kernels import _build
 
     _check_block(th, tw)
@@ -551,19 +581,23 @@ def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
     _require(state, "state", torch.int32, (n,))
     _require(active, "active", torch.int32, (n,))
     wch = torch.empty((n,), dtype=torch.int32, device=state.device)
+    idx = (torch.empty((n_bounces, n), dtype=torch.int32,
+                       device=state.device) if track_idx else None)
 
     lib = _build.load()
     code = lib.rt_wave_bounce(
         packed.tab.data_ptr(), packed.mats.data_ptr(),
         packed.chunks.data_ptr(), tile_order.data_ptr(), pay.data_ptr(),
-        state.data_ptr(), active.data_ptr(), wch.data_ptr(), n, tile,
+        state.data_ptr(), active.data_ptr(), wch.data_ptr(),
+        None if idx is None else idx.data_ptr(), n, tile,
         n_bounces, packed.n_chunks, CHUNK, packed.mats.shape[0],
         int(flags.normalize_reflect_in), int(flags.has_metal),
         int(flags.has_dielectric),
         torch.cuda.current_stream(state.device).cuda_stream)
-    _build.check(lib, code, "wave_bounce")
-    LAUNCHES["wave_bounce"] += 1
-    return wch
+    name = "wave_record_bounce" if track_idx else "wave_bounce"
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return (wch, idx) if track_idx else wch
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +606,8 @@ def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
 
 def eye_chunk_order(packed: PackedScene, cam_row) -> torch.Tensor:
     """Front-to-back chunk visit order from the camera eye, (n_chunks,)
-    int32: the one order the whole-frame kernels use for every bounce."""
+    int32 on the tables' device: the order of bounce 0 in the wave paths
+    and of every bounce in the whole-frame kernels."""
     eye = torch.from_numpy(np.asarray(cam_row, np.float32)[0, 0:3].copy())
     return chunk_order(packed.centroid, eye.to(packed.tab.device))
 
@@ -795,6 +830,25 @@ def bounce_schedule(bounces: int, sort_every: int, skip_last_sort: bool,
     return out
 
 
+def tile_chunk_order(packed: PackedScene, pay, tile: int) -> torch.Tensor:
+    """(n_tiles * n_chunks,) int32: each tile of ``tile`` consecutive rays
+    of the stream visits the chunks front to back from its mean ray
+    origin."""
+    mo = pay[0:3].reshape(3, -1, tile).mean(dim=2)
+    return chunk_order(packed.centroid, mo.T).reshape(-1)
+
+
+def to_pixels(x, pix):
+    """Stream order -> pixel order along the last axis (an inverse-
+    permutation scatter); ``pix`` maps stream position to pixel index,
+    None for the identity."""
+    if pix is None:
+        return x
+    out = torch.empty_like(x)
+    out[..., pix] = x
+    return out
+
+
 def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
                            height: int, width: int, height_pad: int,
                            width_pad: int, bounces: int,
@@ -817,7 +871,6 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
     n_frames = times.shape[0]
     n = n_frames * height_pad * width_pad
     tile = th * tw
-    n_tiles = n // tile
     bounds = scene_bounds(packed.chunks) if key_mode == "morton" else None
 
     def stream_bounces(pay, state, active, wch, start):
@@ -837,20 +890,10 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
                 state = state[perm]
                 pix = perm if pix is None else pix[perm]
                 active = (key != DEAD_KEY).to(torch.int32)
-            # per-tile front-to-back order from each tile's mean ray origin
-            mo = pay[0:3].reshape(3, n_tiles, tile).mean(dim=2)
-            tile_order = chunk_order(packed.centroid, mo.T).reshape(-1)
-            wch = wave_bounce(packed, tile_order, pay, state, active, flags,
-                              n_bounces=nb, th=th, tw=tw)
+            wch = wave_bounce(packed, tile_chunk_order(packed, pay, tile),
+                              pay, state, active, flags, n_bounces=nb,
+                              th=th, tw=tw)
         return pay, state, pix
-
-    def to_pixels(x, pix):
-        """Stream order -> pixel order (an inverse-permutation scatter)."""
-        if pix is None:
-            return x
-        out = torch.empty_like(x)
-        out[..., pix] = x
-        return out
 
     def sample_color(pay, pix, pdy):
         atten = to_pixels(pay[6:9], pix)
@@ -859,10 +902,8 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
             dy, (atten[0], atten[1], atten[2])))
 
     if spp == 1:
-        eye = torch.from_numpy(
-            np.asarray(cam_row, np.float32)[0, 0:3].copy()).to(dev)
         payf, state, active, wch = wave_first(
-            packed, chunk_order(packed.centroid, eye), cam_row, times, row0,
+            packed, eye_chunk_order(packed, cam_row), cam_row, times, row0,
             flags, height=height, width=width, height_pad=height_pad,
             width_pad=width_pad, th=th, tw=tw,
             normalize_defocus_dir=normalize_defocus_dir)
@@ -886,3 +927,55 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
         col = acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
     return (col.reshape(3, n_frames, height_pad, width_pad)
             .permute(1, 0, 2, 3))
+
+
+def render_color_tris_wave_record(packed: PackedScene, cam_row, time: int, *,
+                                  height: int, width: int, height_pad: int,
+                                  width_pad: int, bounces: int,
+                                  normalize_defocus_dir: bool,
+                                  flags: TraceFlags, th: int, tw: int,
+                                  sky_from_final_dir: bool = False):
+    """(color (3, Hp, Wp) f32, hit indices (bounces, Hp, Wp) int32, order
+    (m,)) of one frame through the sorted stream: the recorder for large
+    meshes (counterpart of ``render_color_tris_wave_record``).  K10a traces
+    bounce 0 in pixel tiles; before every later bounce the stream is sorted
+    by the ``morton`` key and one K10b launch traces it.  Per bounce the
+    row of the triangle TABLE each pixel's ray hit, -1 on a miss and from
+    then on; ``order`` maps rows to scene triangle ids.
+
+    The color equals ``render_color_tris_wave(..., sort_every=1,
+    skip_last_sort=False, key_mode="morton")`` over the same tables bit for
+    bit.  Pack the tables as the JAX recorder does, without ``split_big``.
+    Each index plane is born in the stream order of its own bounce and goes
+    back to pixel order through the permutation current at that bounce.
+    """
+    tile = th * tw
+    times = torch.from_numpy(np.array([int(time) & rng.MASK], np.uint32)
+                             .view(np.int32)).to(packed.tab.device)
+    payf, state, active, _, idx0 = wave_first(
+        packed, eye_chunk_order(packed, cam_row), cam_row, times, 0, flags,
+        height=height, width=width, height_pad=height_pad,
+        width_pad=width_pad, th=th, tw=tw,
+        normalize_defocus_dir=normalize_defocus_dir, track_idx=True)
+    pay = payf[0:9]
+    bounds = scene_bounds(packed.chunks)
+    pix = None                      # stream position -> pixel index
+    planes = [idx0]
+    for _ in range(1, bounces):
+        key, perm = torch.sort(ray_sort_key(pay, active, *bounds),
+                               stable=True)
+        pay = pay[:, perm]
+        state = state[perm]
+        pix = perm if pix is None else pix[perm]
+        active = (key != DEAD_KEY).to(torch.int32)
+        _, idx = wave_bounce(packed, tile_chunk_order(packed, pay, tile), pay,
+                             state, active, flags, n_bounces=1, th=th, tw=tw,
+                             track_idx=True)
+        planes.append(to_pixels(idx[0], pix))
+    atten = to_pixels(pay[6:9], pix)
+    dy = to_pixels(pay[4], pix) if sky_from_final_dir else payf[9]
+    color = torch.stack(tc.sky_times_atten(dy, (atten[0], atten[1],
+                                                 atten[2])))
+    return (color.reshape(3, height_pad, width_pad),
+            torch.stack(planes).reshape(bounces, height_pad, width_pad),
+            packed.order)

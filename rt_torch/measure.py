@@ -5,6 +5,8 @@
     python -m rt_torch.measure wall [PATH]        # ms per frame, five windows
     python -m rt_torch.measure fit [FIT]          # ms per record and per step
     python -m rt_torch.measure lookup [FIT]       # row lookups, forward+backward
+    python -m rt_torch.measure record [FIT]       # one record, mono vs wave
+    python -m rt_torch.measure oracle [PATH]      # ms per frame, oracle
 
 PATH names one of the port's render paths (``PATHS`` below, the table
 ``chip_smoke.py`` drives too; default ``suzanne``: Suzanne 512x512, 8
@@ -30,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from rt_torch.core.sphere import SphereArray
 from rt_torch.grad import replay
 from rt_torch.grad.params import SphereParams, TriangleParams
 from rt_torch.grad.train import fit_replay
@@ -81,7 +84,7 @@ class Fit(NamedTuple):
     steps: int
     rerecord_every: int
     learning_rate: float
-    kernel: str         # the recorder's launch count
+    kernel: str         # the recorder's launch count: one per record
 
 
 FITS = {
@@ -92,6 +95,13 @@ FITS = {
     "sphere_simple": Fit(1, 512, 512, {1: (0.1, 0.9, 0.1),
                                        2: (0.9, 0.2, 0.6)}, 20, 10, 5e-2,
                          "spheres_record"),
+    # the large meshes at the scenes' own 512x512 and 5 bounces, the
+    # statue's (dragon's) material 0 wrong: the sorted-stream recorder,
+    # K10a once and K10b once per later bounce a record
+    "lucy_512": Fit(6, 512, 512, {0: (0.9, 0.2, 0.1)}, 20, 10, 5e-2,
+                    "wave_record"),
+    "dragon_512": Fit(7, 512, 512, {0: (0.2, 0.4, 0.9)}, 20, 10, 5e-2,
+                      "wave_record"),
 }
 MIN_WINDOW_S = 0.3
 TILES = [(4, 8), (8, 8), (8, 16), (8, 32), (16, 32), (32, 32)]
@@ -104,12 +114,13 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def renderer(path: str, tile=None, device="cuda") -> ProgressiveRenderer:
+def renderer(path: str, tile=None, device="cuda",
+             backend: str = "kernels") -> ProgressiveRenderer:
     """A ProgressiveRenderer of the named path's scene, size and config."""
     p = PATHS[path]
     sd = scenes.build_scene(p.scene_id, p.width, p.height, device=device)
     sd = dataclasses.replace(sd, config=dataclasses.replace(
-        sd.config, tile=tile, **p.overrides))
+        sd.config, tile=tile, backend=backend, **p.overrides))
     return ProgressiveRenderer(sd, device=device)
 
 
@@ -168,6 +179,34 @@ def wall(path: str = "suzanne", windows: int = 5):
         "frames_per_s": [1e3 / m for m in runs]}), flush=True)
 
 
+def run_oracle(path: str = "suzanne", frames: int = 1) -> dict:
+    """Wall ms per frame of the named path's scene, size and config through
+    the oracle backend (after one warm-up frame), and the kernel launches it
+    made (none)."""
+    r = renderer(path, backend="oracle")
+    r.set_time(1000)
+    r.draw()                                              # warm-up
+    r.reset_frame_count()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    r.draw_frames(frames)
+    image = r.image                       # device -> host: waits for the card
+    ms = (time.perf_counter() - t0) * 1e3 / frames
+    c = r.config
+    return {"path": path, "backend": "oracle", "size": [c.width, c.height],
+            "bounces": c.bounces, "frames": frames, "ms_per_frame": ms,
+            "image_finite": bool(torch.isfinite(torch.from_numpy(image))
+                                 .all()),
+            "launches": {k: v for k, v in dispatch.launch_counts().items()
+                         if v}}
+
+
+def oracle(path: str = "suzanne"):
+    print(json.dumps({"measure": "oracle", "card": _card()}
+                     | run_oracle(path)), flush=True)
+
+
 def fit_setup(name: str, device="cuda"):
     """(scene with the wrong albedos, camera, config, target image) of the
     named training path."""
@@ -209,7 +248,7 @@ def run_fit(name: str = "suzanne_1080p") -> dict:
 
     record_ms = _event_ms(
         lambda: replay.record_hits(scene, camera, config, 1000), 5)
-    tris = f.kernel == "tris_record"
+    tris = not isinstance(scene, SphereArray)
     forward_ms = _event_ms(lambda: loss_fn(params), 5)
     step_ms = _event_ms(lambda: loss_fn(params).backward(), 5)
     gather_ms = 0.0
@@ -251,8 +290,8 @@ def _step_setup(name: str):
     setup = scene, camera, config, target = fit_setup(name)
     _, hits = replay.record_hits(scene, camera, config, 1000)
     loss_fn = replay.replay_loss_fn(scene, camera, config, target, hits, 1000)
-    tris = FITS[name].kernel == "tris_record"
-    start = (TriangleParams if tris else SphereParams).from_scene(scene)
+    start = (SphereParams if isinstance(scene, SphereArray)
+             else TriangleParams).from_scene(scene)
     params = type(start)(*(None if v is None else v.clone().requires_grad_()
                            for v in start))
     return setup, loss_fn, params, hits
@@ -291,7 +330,7 @@ def lookup(name: str = "suzanne_1080p"):
     from torch.nn.functional import embedding
 
     (scene, *_), _, _, hits = _step_setup(name)
-    if FITS[name].kernel == "tris_record":
+    if not isinstance(scene, SphereArray):
         tri, tab = replay._tris_replay_tables(scene)
         idx = replay._gather_tri_rows(tri, hits[0])[..., 12].long()
     else:
@@ -310,6 +349,35 @@ def lookup(name: str = "suzanne_1080p"):
     print(json.dumps({"measure": "lookup", "card": _card(), "fit": name,
                       "table": list(tab.shape), "lookups": idx.numel(),
                       "forward_backward_ms": ms}), flush=True)
+
+
+def record(name: str = "lucy_512", reps: int = 5):
+    """Milliseconds of one ``record_hits`` of the named fit's scene at its
+    start parameters through the whole-frame recorder (K9, ``"mono"``) and
+    the sorted-stream one (K10a + K10b, ``"wave"``), by CUDA events, in
+    turns (mono, wave, wave, mono); and how far their colors and hit ids
+    agree (they differ only where a ray meets two triangles of different
+    chunks at exactly the same t, or at a box-surface rounding)."""
+    scene, camera, config, _ = fit_setup(name)
+    run = {b: (lambda b=b: replay.record_hits(scene, camera, config, 1000,
+                                              tris_backend=b))
+           for b in ("mono", "wave")}
+    out = {b: run[b]() for b in run}
+    ms = {b: [] for b in run}
+    for b in ("mono", "wave", "wave", "mono"):
+        ms[b].append(_event_ms(run[b], reps))
+    dispatch.reset_launch_counts()
+    for b in run:
+        run[b]()
+    (cm, im), (cw, iw) = out["mono"], out["wave"]
+    print(json.dumps({
+        "measure": "record", "card": _card(), "fit": name,
+        "scene_id": FITS[name].scene_id, "size": [config.width,
+                                                  config.height],
+        "bounces": config.bounces, "triangles": scene.m,
+        "ms_per_record": ms, "launches_per_record": dispatch.launch_counts(),
+        "color_pixels_differ": float((cm != cw).any(dim=-1).float().mean()),
+        "hit_ids_differ": float((im != iw).float().mean())}), flush=True)
 
 
 _GROUPS = (
@@ -375,8 +443,8 @@ def main(argv=None) -> int:
         print("rt_torch.measure needs a CUDA device", file=sys.stderr)
         return 1
     what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
-            "lookup": lookup}
-    names = FITS if argv[:1] in (["fit"], ["lookup"]) else PATHS
+            "lookup": lookup, "record": record, "oracle": oracle}
+    names = FITS if argv[:1] in (["fit"], ["lookup"], ["record"]) else PATHS
     if (len(argv) not in (1, 2) or argv[0] not in what
             or (len(argv) == 2 and argv[1] not in names)):
         print(__doc__, file=sys.stderr)

@@ -2,8 +2,9 @@
 
 ``render_frame(scene, camera, state, time, config) -> state`` traces every
 pixel (``config.samples_per_frame`` samples, looped inside the kernels'
-paths) and folds the frame into the accumulator with the reference's
-EMA:  w = 1 / (min(frame_count, SAMPLE_FRAME) + 1);  new = mix(old, color, w).
+paths, or through the oracle with ``config.backend == "oracle"``) and folds
+the frame into the accumulator with the reference's EMA:
+w = 1 / (min(frame_count, SAMPLE_FRAME) + 1);  new = mix(old, color, w).
 Any camera or scene change must zero both the accumulator and the frame
 count (``ProgressiveRenderer.reset_frame_count``).
 """
@@ -18,6 +19,7 @@ import torch
 
 from rt_torch.config import RenderConfig
 from rt_torch.kernels import dispatch
+from rt_torch.render import oracle
 
 
 class RenderState(NamedTuple):
@@ -34,8 +36,15 @@ def init_state(config: RenderConfig, device="cuda") -> RenderState:
 
 def render_frame(scene, camera, state: RenderState, time,
                  config: RenderConfig, device="cuda") -> RenderState:
-    """draw(): trace every pixel and EMA-accumulate."""
-    color = dispatch.render_color(scene, camera, config, time, device)
+    """draw(): trace every pixel and EMA-accumulate.  scene: the scene
+    itself for the oracle, the scene or what ``dispatch.pack_scene`` made of
+    it for the kernels."""
+    if config.backend == "oracle":
+        color = oracle.render_color(scene, camera, config, time, device)
+    elif config.backend == "kernels":
+        color = dispatch.render_color(scene, camera, config, time, device)
+    else:
+        raise ValueError(f"backend {config.backend!r}: kernels or oracle")
     fc = min(state.frame_count, config.sample_frame)
     # weights in float32 on the host, as the f32 scalars the mix multiplies by
     w = np.float32(1.0) / (np.float32(fc) + np.float32(1.0))
@@ -66,7 +75,10 @@ class ProgressiveRenderer:
         self.time = 0
         self.state = init_state(self.config, self.device)
         # kernel tables depend on the scene only: packed once, not per frame
-        self._packed = dispatch.pack_scene(scene_def.scene, self.config)
+        # (the oracle reads the scene itself)
+        self._packed = (scene_def.scene if self.config.backend == "oracle"
+                        else dispatch.pack_scene(scene_def.scene,
+                                                 self.config))
 
     def set_time(self, time: int):
         self.time = int(time) & 0xFFFFFFFF

@@ -329,3 +329,66 @@ def test_cuda_fit_replay_takes_five_steps(name):
     assert table[kernel] == before + 2
     assert all(l == l and l < float("inf") for l in losses)
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["suzanne", "lucy"])
+def test_cuda_wave_recorder_equals_plain_and_render_bitwise(name):
+    """K10a and K10b (two fused bounces, the second over all-dead tiles
+    too) against their plain versions, index planes included; the
+    recorder's color against the render path's with a sort before every
+    bounce; the launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = getattr(tscenes, f"scene_{name}")(64, 64, device="cuda")
+    flags = tdispatch.trace_flags(sd.config)
+    packed = ttk.pack_tri_table(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    order = ttk.eye_chunk_order(packed, cam_row)
+    times = torch.tensor([TIME], dtype=torch.int32, device="cuda")
+    args = dict(height=64, width=64, height_pad=64, width_pad=64, th=8,
+                tw=16, normalize_defocus_dir=True, track_idx=True)
+    before = dict(ttk.LAUNCHES)
+    k = ttk.wave_first(packed, order, cam_row, times, 0, flags, **args)
+    p = ttk.wave_first_plain(packed, order, cam_row, times, 0, flags, **args)
+    assert ttk.LAUNCHES["wave_record"] == before["wave_record"] + 1
+    assert ttk.LAUNCHES["wave_first"] == before["wave_first"]
+    for a, b in zip(k, p):
+        assert _bit_equal(a, b)
+    tile_order = ttk.tile_chunk_order(packed, k[0][0:9], 128)
+    ins = [(k[0][0:9].clone(), k[1].clone(), k[2].clone()) for _ in range(2)]
+    kw_ = ttk.wave_bounce(packed, tile_order, *ins[0], flags, n_bounces=2,
+                          th=8, tw=16, track_idx=True)
+    pw_ = ttk.wave_bounce_plain(packed, tile_order, *ins[1], flags,
+                                n_bounces=2, th=8, tw=16, track_idx=True)
+    assert ttk.LAUNCHES["wave_record_bounce"] == \
+        before["wave_record_bounce"] + 1
+    for a, b in zip((*ins[0], *kw_), (*ins[1], *pw_)):
+        assert _bit_equal(a, b)
+    geo = {k_: v for k_, v in args.items() if k_ != "track_idx"}
+    color, idx, _ = ttk.render_color_tris_wave_record(
+        packed, cam_row, TIME, bounces=4, flags=flags, **geo)
+    render = ttk.render_color_tris_wave(
+        packed, cam_row, times, bounces=4, flags=flags, sort_every=1,
+        skip_last_sort=False, key_mode="morton", **geo)[0]
+    assert _bit_equal(color, render) and idx.shape == (4, 64, 64)
+
+
+@pytest.mark.gpu
+def test_cuda_oracle_and_diff_render_run_on_the_card():
+    """The oracle renders and records on the card without a kernel; the
+    differentiable renderer's forward is the oracle's there too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.grad import record_hits_oracle, render_color_diff
+    from rt_torch.render import oracle
+
+    sd = tscenes.test_scene_metal(64, 32, device="cuda")
+    cfg = dataclasses.replace(sd.config, bounces=3)
+    before = tdispatch.launch_counts()
+    img = oracle.render_color(sd.scene, sd.camera, cfg, TIME)
+    color, hits = record_hits_oracle(sd.scene, sd.camera, cfg, TIME)
+    diff = render_color_diff(sd.scene, sd.camera, cfg, TIME)
+    assert tdispatch.launch_counts() == before
+    assert img.is_cuda and torch.equal(img, color)
+    assert torch.equal(img, diff.detach()) and (hits >= 0).any()

@@ -340,4 +340,5 @@ def test_recorders_fail_loudly_without_a_card_and_past_their_limits():
             **dict(geometry(), height_pad=24))
     assert set(tdispatch.launch_counts()) == {
         "wave_first", "wave_bounce", "wave_raygen", "spheres",
-        "spheres_chunked", "tris_mono", "tris_record", "spheres_record"}
+        "spheres_chunked", "tris_mono", "tris_record", "spheres_record",
+        "wave_record", "wave_record_bounce"}

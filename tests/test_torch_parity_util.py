@@ -41,12 +41,12 @@ def jax_tables(jscene):
     return tab, mats, chunks, subs, n_chunks
 
 
-def _common(mats, n_chunks, flags):
+def _common(mats, n_chunks, flags, track_idx=False, track_chunk=True):
     return dict(n_chunks=n_chunks, chunk=32, n_mats=mats.shape[0],
                 normalize_reflect_in=flags["normalize_reflect_in"],
                 has_metal=flags["has_metal"],
                 has_dielectric=flags["has_dielectric"], unroll=1,
-                track_chunk=True, sub=0)
+                track_idx=track_idx, track_chunk=track_chunk, sub=0)
 
 
 def jax_wave_first(jscene, cam_row, order, time, *, height, width, hp, wp,
@@ -157,51 +157,60 @@ def _tables_refs(jscene, order):
 
 def eager_wave_first(jscene, cam_row, order, time, *, height,
                      width, hp, wp, th, tw, flags,
-                     normalize_defocus_dir=True):
+                     normalize_defocus_dir=True, track_idx=False):
     """_wave_first_kernel, tile by tile, eagerly.  Same returns as
-    jax_wave_first."""
+    jax_wave_first; with track_idx (the recorder's K10a) one more, the
+    index plane (n,)."""
     refs, mats, n_chunks = _tables_refs(jscene, order)
     payf = np.zeros((10, hp, wp), np.float32)
     state = np.zeros((hp, wp), np.uint32)
     active = np.zeros((hp, wp), np.int32)
     wch = np.zeros((hp, wp), np.int32)
+    idx = np.zeros((hp, wp), np.int32)
     ids = [0, 0, 0]
     with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
         mp.setattr(jtk.pl, "program_id", lambda axis: ids[axis])
         for i in range(hp // th):
             for j in range(wp // tw):
                 ids[1], ids[2] = i, j
+                plane = lambda: FakeRef(np.zeros((th, tw), np.int32))
                 outs = (FakeRef(np.zeros((10, th, tw), np.float32)),
-                        FakeRef(np.zeros((th, tw), np.uint32)),
-                        FakeRef(np.zeros((th, tw), np.int32)),
-                        FakeRef(np.zeros((th, tw), np.int32)))
+                        FakeRef(np.zeros((th, tw), np.uint32)), plane())
+                # the extra planes: the index (track_idx), the chunk
+                rest = (plane(), plane()) if track_idx else (plane(),)
                 jtk._wave_first_kernel(
                     *refs, FakeRef(cam_row),
                     FakeRef(np.asarray(time, np.uint32).reshape(1, 1)),
-                    FakeRef(np.zeros((1, 1), np.int32)), *outs,
+                    FakeRef(np.zeros((1, 1), np.int32)), *outs, *rest,
                     height=height, width=width, th=th, tw=tw,
                     normalize_defocus_dir=normalize_defocus_dir,
-                    **_common(mats, n_chunks, flags))
+                    **_common(mats, n_chunks, flags, track_idx=track_idx))
                 sl = (slice(i * th, (i + 1) * th), slice(j * tw, (j + 1) * tw))
                 payf[(slice(None),) + sl] = outs[0].a
-                state[sl], active[sl], wch[sl] = (o.a for o in outs[1:])
+                state[sl], active[sl] = outs[1].a, outs[2].a
+                wch[sl] = rest[-1].a
+                idx[sl] = rest[0].a
     n = hp * wp
-    return (payf.reshape(10, n), state.reshape(n), active.reshape(n),
-            wch.reshape(n))
+    out = (payf.reshape(10, n), state.reshape(n), active.reshape(n),
+           wch.reshape(n))
+    return out + (idx.reshape(n),) if track_idx else out
 
 
 def eager_wave_bounce(jscene, tile_order, pay, state, active, *,
-                      n_bounces, th, tw, flags):
+                      n_bounces, th, tw, flags, track_idx=False):
     """_wave_bounce_kernel, tile by tile, eagerly.  Same returns as
-    jax_wave_bounce."""
+    jax_wave_bounce; with track_idx (the recorder's K10b) the last is the
+    index planes (n_bounces, n) instead of the chunk plane."""
     refs, mats, n_chunks = _tables_refs(jscene, tile_order)
     n = pay.shape[1]
     rows = n // tw
     pay = np.asarray(pay, np.float32).reshape(9, rows, tw)
     state = np.asarray(state).astype(np.uint32).reshape(rows, tw)
     active = np.asarray(active, np.int32).reshape(rows, tw)
+    last = (np.zeros((n_bounces, rows, tw), np.int32) if track_idx
+            else np.zeros_like(active))
     out = (np.zeros_like(pay), np.zeros_like(state), np.zeros_like(active),
-           np.zeros_like(active))
+           last)
     ids = [0]
     with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
         mp.setattr(jtk.pl, "program_id", lambda axis: ids[axis])
@@ -212,11 +221,13 @@ def eager_wave_bounce(jscene, tile_order, pay, state, active, *,
             jtk._wave_bounce_kernel(
                 *refs, FakeRef(pay[:, sl]), FakeRef(state[sl]),
                 FakeRef(active[sl]), *outs, th=th, tw=tw,
-                n_bounces=n_bounces, **_common(mats, n_chunks, flags))
+                n_bounces=n_bounces,
+                **_common(mats, n_chunks, flags, track_idx=track_idx,
+                          track_chunk=not track_idx))
             for o, r in zip(out, outs):
                 o[..., sl, :] = r.a
     return (out[0].reshape(9, n), out[1].reshape(n), out[2].reshape(n),
-            out[3].reshape(n))
+            out[3].reshape(n_bounces, n) if track_idx else out[3].reshape(n))
 
 
 def eager_wave_raygen(cam_row, time, *, height, width, hp, wp, th, tw,

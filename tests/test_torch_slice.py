@@ -225,8 +225,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_rt():
     assert "BAD []" in proc.stdout, proc.stdout
     seen = proc.stdout.split("SEEN", 1)[1]
     for module in ("grad.loss", "grad.params", "grad.replay", "grad.train",
-                   "core.materials", "core.trace", "core.camera",
-                   "core.sphere", "measure", "convert"):
+                   "grad.diff_render", "grad.fd", "core.materials",
+                   "core.trace", "core.camera", "core.sphere",
+                   "core.triangle", "core.hits", "render.oracle", "measure",
+                   "convert"):
         assert f"'rt_torch.{module}'" in seen, module
 
 

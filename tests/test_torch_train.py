@@ -385,14 +385,28 @@ def test_vertex_fields_need_unfrozen_geometry():
                                           center=False)).mat_param is not None
 
 
-def test_wave_recorder_is_not_ported_and_says_so():
+def test_auto_routes_a_large_mesh_to_the_wave_recorder(monkeypatch):
+    """Above 8192 triangles ``"auto"`` records through the sorted stream
+    (K10a/K10b on a card, their plain versions here) and returns scene-order
+    ids; an unknown backend and a scene on another device than asked are
+    refused."""
+    from rt_torch.kernels import tris_kernel as ttk
+
     *_, tscene, tcam, tcfg, _ = setup("scene_cube", bounces=2)
-    with pytest.raises(NotImplementedError, match="K10"):
-        record_hits(tscene, tcam, tcfg, TIME, device="cpu",
-                    tris_backend="wave")
-    big = tscene._replace(a=tscene.a.repeat(700, 1))      # 8400 triangles
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        record_hits(big, tcam, tcfg, TIME, device="cpu")
+    # 8208 triangles: the cube's 36 228 times over (one bounce keeps the
+    # plain version's Python loop over 257 chunks short)
+    big = tscene._replace(**{k: getattr(tscene, k).repeat(
+        228, *([1] * (getattr(tscene, k).dim() - 1)))
+        for k in ("a", "b", "c", "normal", "mat_id")})
+    calls = []
+    wave = ttk.render_color_tris_wave_record
+    monkeypatch.setattr(ttk, "render_color_tris_wave_record",
+                        lambda *a, **k: calls.append(1) or wave(*a, **k))
+    color, hits = record_hits(big, tcam, dataclasses.replace(tcfg, bounces=1),
+                              TIME, device="cpu")
+    assert calls == [1] and big.m == 8208
+    assert hits.shape == (1, H, W) and int(hits.max()) < big.m
+    assert bool((hits >= 0).any()) and torch.isfinite(color).all()
     with pytest.raises(ValueError, match="tris_backend"):
         record_hits(tscene, tcam, tcfg, TIME, device="cpu",
                     tris_backend="oracle")
