@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from rt_torch/kernels/csrc, holds each of
-the ten (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
-tris_mono, tris_record, spheres_record, and the sorted-stream recorder's
-wave_record and wave_record_bounce) against its plain PyTorch version on
-the card at the shapes and in the stream states each path gives it, drives
-the port's render paths (``rt_torch.measure.PATHS``) through ``build_scene
--> ProgressiveRenderer -> draw_frames``:
+the thirteen (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
+tris_mono, tris_record, spheres_record, the sorted-stream recorder's
+wave_record and wave_record_bounce, and the probes' lane_gather, mt_scan and
+woop_mma) against its plain PyTorch version on the card at the shapes and in
+the stream states each path gives it, drives the probes (``python -m
+rt_torch.probes lane_gather`` and ``r5_mxu`` at the tools' sizes) and the
+port's render paths (``rt_torch.measure.PATHS``) through ``build_scene ->
+ProgressiveRenderer -> draw_frames``:
 
 - Suzanne 512x512, 8 bounces, 1 sample per pixel (wave_first, wave_bounce);
 - scene 1 (sphere_simple) 512x512, 10 bounces (spheres);
@@ -40,7 +42,11 @@ starts no process that outlives it.
 
 Tolerance of kernel against plain version: none.  The kernels are compiled
 with -fmad=false and use IEEE division and square root, so every output
-element must be bit-equal (max_abs_err 0, no ray differs).
+element must be bit-equal (max_abs_err 0, no ray differs) — except
+woop_mma's, whose product runs on the tensor cores, which sum in an order
+and with a rounding of their own: its limits are ``r5_mxu.woop_agreement``'s
+(hit/miss on at most 0.1 % of the rays; t within 1e-5 relative where both
+hit, or within the f32 rounding bound of the winning triangle's sums).
 """
 
 import dataclasses
@@ -84,6 +90,12 @@ FLOPS_PER_SPHERE_PAIR = 23
 # divide), 2 two-vector and 2 four-vector normalisations, uv, make_ray,
 # defocus
 FLOPS_PER_RAYGEN = 102
+
+# the epilogue of the probe's Woop intersection per (ray, triangle)
+# (probes.cu woop_mma_kernel): reciprocal, negate, 3 multiply, 2 add, u + v,
+# 5 compare, select, min
+FLOPS_PER_WOOP_PAIR = 15
+PEAK_BF16_FLOPS = 989e12     # dense, tensor cores
 
 KERNEL_SIZE = 512     # the triangle paths' image is 512 x 512
 
@@ -679,6 +691,127 @@ def phase_kernels_record():
     return records
 
 
+def phase_probes():
+    """The probes of ``rt_torch.probes``: ``python -m rt_torch.probes
+    lane_gather`` and ``r5_mxu`` at the tools' sizes (three shapes at 512
+    iterations; 64 chunks, 200 repetitions) with the launch counts set to 0
+    just before and read just after; then each kernel against its plain
+    version at those shapes.  Limits: P1 and P2 A bit-equal (P1 also to the
+    tool's NumPy reference); P2 B within ``r5_mxu.woop_agreement``.  Returns
+    (records, launches on the entry point's run)."""
+    from rt_torch import probes
+    from rt_torch.probes import __main__ as probes_cli
+    from rt_torch.probes import lane_gather, r5_mxu
+
+    t0 = time.perf_counter()
+    probes.reset_launch_counts()
+    rcs = [probes_cli.main(["lane_gather"]), probes_cli.main(["r5_mxu"])]
+    torch.cuda.synchronize()
+    launches = probes.launch_counts()
+    if any(rcs) or not all(launches.values()):
+        raise SystemExit(f"probes: the entry point returned {rcs} or a "
+                         f"kernel was not launched ({launches})")
+
+    source = "rt_torch/kernels/csrc/probes.cu"
+    gather = []
+    for th, tw in lane_gather.SHAPES:
+        tab_row, tab_np, idx_np = lane_gather.inputs(th, tw)
+        tab = torch.from_numpy(tab_np).to(DEV)
+        idx = torch.from_numpy(idx_np).to(DEV)
+        run = lambda: lane_gather.lane_gather(tab, idx, lane_gather.ITERS)
+        k = run()
+        p, plain_ms = _plain_timed(lambda: lane_gather.lane_gather_plain(
+            tab, idx, lane_gather.ITERS))
+        ref = torch.from_numpy(lane_gather.reference(
+            tab_row, idx_np, lane_gather.ITERS)).to(DEV)
+        n = th * tw
+        flops = lane_gather.ITERS * n                 # one add a gather
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        t_bytes = 3 * n * 4 / PEAK_BYTES_PER_S * 1e3
+        gather.append(dict(
+            name="lane_gather", route="cuda", source=source,
+            replaces="tools/exp_lane_gather.py:39", shape=[th, tw],
+            iters=lane_gather.ITERS, max_abs_err=float((k - p).abs().max()),
+            elements_differ=int((k.view(torch.int32)
+                                 != p.view(torch.int32)).sum()),
+            elements_differ_from_reference=int(
+                (k.view(torch.int32) != ref.view(torch.int32)).sum()),
+            ms=_timed_graph(run, 50), plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, library_ms=None))
+
+    n_chunks = 64
+    a = r5_mxu.to_device(r5_mxu.inputs(n_chunks), DEV)
+    pairs = r5_mxu.R * n_chunks * r5_mxu.CHUNK
+    in_bytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+
+    run_a = lambda: r5_mxu.mt_scan(a["tri"], a["o"], a["d"])
+    k = run_a()
+    p, plain_ms = _plain_timed(lambda: r5_mxu.mt_scan_plain(a["tri"], a["o"],
+                                                            a["d"]))
+    err, frac = _diff((k.reshape(1, -1),), (p.reshape(1, -1),))
+    flops = pairs * FLOPS_PER_PAIR
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = (in_bytes(a["tri"], a["o"], a["d"]) + r5_mxu.R * 4) \
+        / PEAK_BYTES_PER_S * 1e3
+    scan = dict(name="mt_scan", route="cuda", source=source,
+                replaces="tools/exp_r5_mxu.py:137", n_chunks=n_chunks,
+                max_abs_err=err, rays_differ=frac,
+                hit_share=float((p != r5_mxu._FLT_MAX).float().mean()),
+                ms=_timed_graph(run_a, 50), plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, library_ms=None)
+
+    run_b = lambda: r5_mxu.woop(a["w"], a["x"])
+    k = run_b()
+    (p, win), plain_ms = _plain_timed(lambda: r5_mxu.woop_plain(
+        a["w"], a["x"], winner=True))
+    agree = r5_mxu.woop_agreement(k, p, a["w"], a["x"], win)
+    # the product on the tensor cores and the epilogue on the CUDA cores
+    # run side by side: the least time is the larger of the two
+    mma_flops = 2 * pairs * 6 * r5_mxu.WOOP_K
+    epi_flops = pairs * FLOPS_PER_WOOP_PAIR
+    t_mma = mma_flops / PEAK_BF16_FLOPS * 1e3
+    t_epi = epi_flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = (in_bytes(a["w"], a["x"]) + r5_mxu.R * 4) \
+        / PEAK_BYTES_PER_S * 1e3
+    woop = dict(name="woop_mma", route="cuda", source=source,
+                replaces="tools/exp_r5_mxu.py:142", n_chunks=n_chunks,
+                max_abs_err=float((k - p).abs().max()), agreement=agree,
+                ms=_timed_graph(run_b, 50), plain_ms=plain_ms,
+                bound_ms=max(t_mma, t_epi, t_bytes),
+                bound_by="operations" if max(t_mma, t_epi) >= t_bytes
+                else "bytes",
+                bound_parts_ms=dict(tensor_core=t_mma, cuda_core=t_epi,
+                                    bytes=t_bytes),
+                flops=mma_flops + epi_flops, library_ms=None)
+
+    ab = dict(n_chunks=n_chunks, rays=r5_mxu.R, pairs=pairs,
+              a_us_per_pass=scan["ms"] * 1e3,
+              b_us_per_pass=woop["ms"] * 1e3,
+              a_gpairs_per_s=pairs / scan["ms"] / 1e6,
+              b_gpairs_per_s=pairs / woop["ms"] / 1e6,
+              a_over_b=scan["ms"] / woop["ms"],
+              b_at_least_2x_faster=scan["ms"] >= 2 * woop["ms"])
+    say(phase="probes", launches=launches, a_vs_b=ab,
+        limit="lane_gather, mt_scan bit-equal to plain (lane_gather also "
+              "to the NumPy reference); woop_mma: hit/miss on at most "
+              f"{r5_mxu.HIT_MISS_LIMIT} of the rays, t within "
+              f"{r5_mxu.REL_LIMIT} relative where both hit or within the "
+              "rounding bound of the winner's sums", results=gather
+        + [scan, woop], seconds=time.perf_counter() - t0)
+    bad = [r for r in gather if r["elements_differ"]
+           or r["elements_differ_from_reference"]]
+    if bad or scan["rays_differ"] or not agree["ok"]:
+        raise SystemExit(f"probes: a kernel disagrees with its plain "
+                         f"version: lane_gather {bad}, mt_scan rays "
+                         f"{scan['rays_differ']}, woop_mma {agree}")
+    # one entry a kernel: lane_gather at its largest shape
+    return [gather[-1], scan, woop], launches
+
+
 def phase_oracle():
     """The oracle backend on the card: ``rt_torch.cli --oracle`` renders
     once; the ``tests/golden_tris`` images under today's bounds; whether
@@ -846,6 +979,7 @@ def main():
     say(phase="device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_build()
+    probe_records, probe_launches = phase_probes()
     phase_kernels(scenes.scene_suzanne, 128, (2, 1))
     launches = phase_render()
     launches |= phase_train()
@@ -859,6 +993,8 @@ def main():
     # Python, about half a minute each at this size
     records += phase_kernels(scenes.scene_dragon, KERNEL_SIZE, (1,), reps=3)
     records += phase_kernels_record()
+    records += probe_records
+    launches |= probe_launches
     phase_golden()
     phase_oracle()
 

@@ -392,3 +392,34 @@ def test_cuda_oracle_and_diff_render_run_on_the_card():
     assert tdispatch.launch_counts() == before
     assert img.is_cuda and torch.equal(img, color)
     assert torch.equal(img, diff.detach()) and (hits >= 0).any()
+
+
+@pytest.mark.gpu
+def test_cuda_probe_kernels_against_their_plain_versions():
+    """P1 and P2 A bit-equal to their plain versions (P1 at every shape of
+    the probe, 512 iterations; P2 A at 2 chunks with a degenerate row); P2 B
+    (tensor cores) within ``r5_mxu.woop_agreement``'s limits at 4 chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.probes import lane_gather, launch_counts, r5_mxu
+
+    before = launch_counts()
+    for th, tw in lane_gather.SHAPES:
+        _, tab, idx = lane_gather.inputs(th, tw)
+        tab, idx = torch.from_numpy(tab).cuda(), torch.from_numpy(idx).cuda()
+        assert _bit_equal(lane_gather.lane_gather(tab, idx, 512),
+                          lane_gather.lane_gather_plain(tab, idx, 512))
+    arrays = r5_mxu.inputs(4)
+    arrays["tri"][5, 3:6] = 0.0
+    a = r5_mxu.to_device(arrays, "cuda")
+    tri = a["tri"][:2 * r5_mxu.CHUNK].contiguous()
+    assert _bit_equal(r5_mxu.mt_scan(tri, a["o"], a["d"]),
+                      r5_mxu.mt_scan_plain(tri, a["o"], a["d"]))
+    t = r5_mxu.woop(a["w"], a["x"])
+    t_ref, win = r5_mxu.woop_plain(a["w"], a["x"], winner=True)
+    agree = r5_mxu.woop_agreement(t, t_ref, a["w"], a["x"], win)
+    assert agree["ok"], agree
+    after = launch_counts()
+    assert after["lane_gather"] == before["lane_gather"] + 3
+    assert after["mt_scan"] == before["mt_scan"] + 1
+    assert after["woop_mma"] == before["woop_mma"] + 1
