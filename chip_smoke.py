@@ -112,13 +112,18 @@ def nvidia_smi_line() -> str:
 
 
 def phase_build():
+    """Build every kernel; print each one's registers, shared memory and
+    spills (``-Xptxas -v``) and, for the triangle kernels, what their code
+    holds (``cuobjdump -sass``: the reciprocal of the triangle scan is
+    MUFU.RCP with its refinement, not a full division's FCHK)."""
     t0 = time.perf_counter()
     lib = _build.load()
     dt = time.perf_counter() - t0
-    usage = [ln.strip() for ln in lib.build_log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln
-             or "spill" in ln]
-    say(phase="build", seconds=round(dt, 2), ptxas=usage)
+    sass = {}
+    for stem in ("tris_wave", "tris_mono"):
+        sass |= _build.sass_summary(lib.paths[stem])
+    say(phase="build", seconds=round(dt, 2),
+        ptxas=_build.ptxas_usage(lib.build_log), sass=sass)
 
 
 def _timed(fn, reps):
@@ -158,10 +163,10 @@ def _diff(kernel_out, plain_out):
 def _bound(counts, nbytes, per_pair=tris_kernel.CHUNK * FLOPS_PER_PAIR,
            extra_flops=0):
     """(bound ms, what bounds it, operations) from the plain version's
-    counts of this run's data: [pairs or chunk scans, box tests] per
+    counts of this run's data: [pairs or chunk scans, box tests, ...] per
     bounce."""
     flops = extra_flops + sum(s * per_pair + b * FLOPS_PER_BOX
-                              for s, b in counts)
+                              for s, b, *_ in counts)
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
@@ -212,7 +217,8 @@ def _compare_bounce(case, size, packed, flags, th, tw, pay0, state0, active0,
         tw=tw, scan_counts=counts))
     rec = _wave_record("wave_bounce", 657, case, size, th, tw,
                        (kp, ks, ka, kw_), (pp, ps, pa, pw), plain_ms,
-                       n_bounces=n_bounces, n_chunks=packed.n_chunks)
+                       n_bounces=n_bounces, n_chunks=packed.n_chunks,
+                       **_counts_record(counts))
     if reps:
         bufs = [fresh() for _ in range(reps)]
         rec["ms"] = _timed(lambda i: tris_kernel.wave_bounce(
@@ -226,58 +232,48 @@ def _compare_bounce(case, size, packed, flags, th, tw, pay0, state0, active0,
     return rec
 
 
+def _counts_record(counts):
+    """The plain version's per-bounce counts under their names."""
+    names = ("ray_chunk_scans", "box_tests", "tile_chunk_visits",
+             "candidates", "tile_chunk_scans", "heaviest_tile_scans")
+    return {"counts": [dict(zip(names, c)) for c in counts]}
+
+
 def compare_wave(make_scene, size: int, bounces_fused, reps: int = 0):
     """K2, then K3 on the sorted stream after bounce 0, against their plain
     versions on one frame of ``make_scene`` at size x size: the tables, tile
-    shape, coherence key and stream state the scene's path gives them.
-    With reps > 0 also times them.  Returns one record per comparison."""
-    sd = make_scene(size, size, device=DEV)
-    kw = dispatch.wave_params(sd.scene, sd.config)
-    th, tw, flags = kw["th"], kw["tw"], kw["flags"]
-    packed = dispatch.pack_scene(sd.scene)
-    cam_row = dispatch.pack_camera(sd.camera)
-    eye = torch.from_numpy(cam_row[0, 0:3].copy()).to(DEV)
-    order = tris_kernel.chunk_order(packed.centroid, eye)
-    times = torch.tensor([1000], dtype=torch.int32, device=DEV)
-    first_kw = dict(height=size, width=size, height_pad=size, width_pad=size,
-                    th=th, tw=tw,
-                    normalize_defocus_dir=kw["normalize_defocus_dir"])
-    case = f"{sd.name} {kw['key_mode']}"
+    shape, coherence key and stream state the scene's path gives them
+    (``measure.wave_state``).  With reps > 0 also times them.  Returns one
+    record per comparison."""
+    st = measure.wave_state(make_scene, size, DEV)
+    packed, flags, th, tw = st.packed, st.flags, st.th, st.tw
+    case = f"{st.sd.name} {st.kw['key_mode']}"
     n = size * size
 
     # ---- K2 ----
-    k_out = tris_kernel.wave_first(packed, order, cam_row, times, 0, flags,
-                                   **first_kw)
     counts = []
     p_out, plain_ms = _plain_timed(lambda: tris_kernel.wave_first_plain(
-        packed, order, cam_row, times, 0, flags, scan_counts=counts,
-        **first_kw))
-    rec = _wave_record("wave_first", 583, case, size, th, tw, k_out, p_out,
-                       plain_ms, n_chunks=packed.n_chunks)
+        packed, st.order, st.cam_row, st.times, 0, flags, scan_counts=counts,
+        **st.first_kw))
+    rec = _wave_record("wave_first", 583, case, size, th, tw, st.first,
+                       p_out, plain_ms, n_chunks=packed.n_chunks,
+                       **_counts_record(counts))
     if reps:
         rec["ms"] = _timed(lambda i: tris_kernel.wave_first(
-            packed, order, cam_row, times, 0, flags, **first_kw), reps)
+            packed, st.order, st.cam_row, st.times, 0, flags, **st.first_kw),
+            reps)
         table_bytes = sum(t.numel() * 4 for t in
                           (packed.tab, packed.mats, packed.chunks))
-        nbytes = table_bytes + order.numel() * 4 + 13 * n * 4
+        nbytes = table_bytes + st.order.numel() * 4 + 13 * n * 4
         rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(counts,
                                                                 nbytes)
     records = [rec]
 
     # ---- K3 on the sorted stream after bounce 0 ----
-    payf, state, active, wch = k_out
-    bounds = (tris_kernel.scene_bounds(packed.chunks)
-              if kw["key_mode"] == "morton" else None)
-    key, perm = torch.sort(
-        tris_kernel.stream_key(payf, active, wch, kw["key_mode"], bounds),
-        stable=True)
-    pay0 = payf[0:9][:, perm].contiguous()
-    state0 = state[perm].contiguous()
-    active0 = (key != tris_kernel.DEAD_KEY).to(torch.int32)
     for nb in bounces_fused:
         records.append(_compare_bounce(
             f"{case}, sorted stream after bounce 0", size, packed, flags, th,
-            tw, pay0, state0, active0, nb, reps))
+            tw, st.pay0, st.state0, st.active0, nb, reps))
     return records
 
 
@@ -285,20 +281,10 @@ def compare_bounce_from_raygen(size: int, reps: int):
     """K3 as the paths of more than one sample per pixel launch it first:
     2 fused bounces straight from K4's output on Suzanne, every ray alive,
     in pixel order, no winning-chunk plane before it."""
-    sd = scenes.scene_suzanne(size, size, device=DEV)
-    kw = dispatch.wave_params(sd.scene, sd.config)
-    th, tw = kw["th"], kw["tw"]
-    packed = dispatch.pack_scene(sd.scene)
-    times = torch.tensor([1000], dtype=torch.int32, device=DEV)
-    od, _, state = tris_kernel.wave_raygen(
-        dispatch.pack_camera(sd.camera), times, 0, height=size, width=size,
-        height_pad=size, width_pad=size, th=th, tw=tw,
-        normalize_defocus_dir=kw["normalize_defocus_dir"])
-    pay = torch.cat([od, torch.ones_like(od[0:3])])
-    active = torch.ones_like(state)
-    return _compare_bounce(f"{sd.name}, primary rays from wave_raygen", size,
-                           packed, kw["flags"], th, tw, pay, state, active, 2,
-                           reps)
+    st = measure.raygen_state(size, DEV)
+    return _compare_bounce(f"{st.sd.name}, primary rays from wave_raygen",
+                           size, st.packed, st.flags, st.th, st.tw, st.pay0,
+                           st.state0, st.active0, 2, reps)
 
 
 def _require_bit_equal(records):
@@ -569,77 +555,63 @@ def compare_wave_record(make_scene, size: int, reps: int):
     """K10a, then K10b on the morton-sorted stream after bounce 0, against
     their plain versions (payload, state, active, winning chunk and the
     index plane) on one frame of ``make_scene`` at size x size, over the
-    tables the recorder packs (no split_big).  With reps > 0 also times
-    them."""
-    sd = make_scene(size, size, device=DEV)
-    th, tw = dispatch.DEFAULT_TILE
-    flags = dispatch.trace_flags(sd.config)
-    packed = tris_kernel.pack_tri_table(sd.scene)
-    cam_row = dispatch.pack_camera(sd.camera)
-    order = tris_kernel.eye_chunk_order(packed, cam_row)
-    times = torch.tensor([1000], dtype=torch.int32, device=DEV)
-    first_kw = dict(height=size, width=size, height_pad=size, width_pad=size,
-                    th=th, tw=tw, track_idx=True,
-                    normalize_defocus_dir=sd.config.normalize_defocus_dir)
-    case = f"{sd.name} recorder tables"
+    tables the recorder packs (no split_big; ``measure.record_state``).
+    With reps > 0 also times them."""
+    st = measure.record_state(make_scene, size, DEV)
+    packed, flags, th, tw = st.packed, st.flags, st.th, st.tw
+    case = f"{st.sd.name} recorder tables"
     n = size * size
     table_bytes = sum(t.numel() * 4 for t in
                       (packed.tab, packed.mats, packed.chunks))
 
     # ---- K10a ----
-    k_out = tris_kernel.wave_first(packed, order, cam_row, times, 0, flags,
-                                   **first_kw)
+    k_out = st.first
     counts = []
     p_out, plain_ms = _plain_timed(lambda: tris_kernel.wave_first_plain(
-        packed, order, cam_row, times, 0, flags, scan_counts=counts,
-        **first_kw))
+        packed, st.order, st.cam_row, st.times, 0, flags, scan_counts=counts,
+        **st.first_kw))
     rec = _wave_record("wave_record", 1211, case, size, th, tw, k_out, p_out,
                        plain_ms, n_chunks=packed.n_chunks,
+                       **_counts_record(counts),
                        index_entries_differ=float(
                            (k_out[4] != p_out[4]).float().mean()))
     if reps:
         rec["ms"] = _timed(lambda i: tris_kernel.wave_first(
-            packed, order, cam_row, times, 0, flags, **first_kw), reps)
+            packed, st.order, st.cam_row, st.times, 0, flags, **st.first_kw),
+            reps)
         # payf 10, state, active, winning chunk, index: 14 words a ray
-        nbytes = table_bytes + order.numel() * 4 + 14 * n * 4
+        nbytes = table_bytes + st.order.numel() * 4 + 14 * n * 4
         rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
             counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
     records = [rec]
 
     # ---- K10b on the sorted stream after bounce 0 ----
-    payf, state, active, _, _ = k_out
-    key, perm = torch.sort(tris_kernel.ray_sort_key(
-        payf, active, *tris_kernel.scene_bounds(packed.chunks)), stable=True)
-    pay0 = payf[0:9][:, perm].contiguous()
-    state0 = state[perm].contiguous()
-    active0 = (key != tris_kernel.DEAD_KEY).to(torch.int32)
-    tile_order = tris_kernel.tile_chunk_order(packed, pay0, th * tw)
-
     def fresh():
-        return pay0.clone(), state0.clone(), active0.clone()
+        return st.pay0.clone(), st.state0.clone(), st.active0.clone()
 
     kp, ks, ka = fresh()
-    kw_, kidx = tris_kernel.wave_bounce(packed, tile_order, kp, ks, ka, flags,
-                                        n_bounces=1, th=th, tw=tw,
+    kw_, kidx = tris_kernel.wave_bounce(packed, st.tile_order, kp, ks, ka,
+                                        flags, n_bounces=1, th=th, tw=tw,
                                         track_idx=True)
     pp, ps, pa = fresh()
     counts = []
     (pw, pidx), plain_ms = _plain_timed(lambda: tris_kernel.wave_bounce_plain(
-        packed, tile_order, pp, ps, pa, flags, n_bounces=1, th=th, tw=tw,
+        packed, st.tile_order, pp, ps, pa, flags, n_bounces=1, th=th, tw=tw,
         track_idx=True, scan_counts=counts))
     rec = _wave_record("wave_record_bounce", 1277,
                        f"{case}, morton-sorted stream after bounce 0", size,
                        th, tw, (kp, ks, ka, kw_, kidx), (pp, ps, pa, pw, pidx),
                        plain_ms, n_bounces=1, n_chunks=packed.n_chunks,
+                       **_counts_record(counts),
                        index_entries_differ=float(
                            (kidx != pidx).float().mean()))
     if reps:
         bufs = [fresh() for _ in range(reps)]
         rec["ms"] = _timed(lambda i: tris_kernel.wave_bounce(
-            packed, tile_order, *bufs[i], flags, n_bounces=1, th=th, tw=tw,
-            track_idx=True), reps)
+            packed, st.tile_order, *bufs[i], flags, n_bounces=1, th=th,
+            tw=tw, track_idx=True), reps)
         # reads pay 9, state, active; writes those, winning chunk, index
-        nbytes = table_bytes + tile_order.numel() * 4 + (11 + 13) * n * 4
+        nbytes = table_bytes + st.tile_order.numel() * 4 + (11 + 13) * n * 4
         rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(counts,
                                                                 nbytes)
     records.append(rec)

@@ -1,13 +1,16 @@
 """Headless CLI of the port — counterpart of ``rt/cli.py``.
 
 Usage:
-    python -m rt_torch.cli --scene 5 --frames N --size WxH -o out.ppm
-                           [--spp S] [--seed N] [--device cpu] [--mono]
-                           [--oracle] [--time-step MS] [--start-time T]
+    python -m rt_torch.cli [ID] [--scene ID] --frames N --size WxH -o out.ppm
+                           [--spp S] [--bounces B] [--seed N] [--device cpu]
+                           [--mono] [--oracle] [--time-step MS]
+                           [--start-time T]
 
 Renders a scene (1 sphere_simple, 2 sphere_globe, 3 quad, 4 cube, 5 suzanne,
 6 lucy, 7 dragon, 8 sphere_cover; another id gives scene 1) progressively
-and writes a PPM.  The default device is ``cuda``: the hand-written kernels are
+and writes a PPM.  The id is positional, as in the reference app;
+``--scene`` overrides it, and an absent or unparsable id picks a random
+scene in 1..7.  The default device is ``cuda``: the hand-written kernels are
 compiled at first use.  ``--device cpu`` runs their plain PyTorch versions
 (slow; meant for small sizes).  ``--oracle`` renders through the oracle
 backend instead of the kernels: plain tensor code, every sphere or the BVH
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import random
 import sys
 import time as time_mod
 
@@ -30,7 +34,11 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--scene", type=int, default=5, help="scene id 1-8")
+    p.add_argument("scene", nargs="?", default=None,
+                   help="scene id 1-8 (random in 1-7 if omitted or not a "
+                        "number, like the reference)")
+    p.add_argument("--scene", dest="scene_opt", type=int, default=None,
+                   help="scene id; overrides the positional one")
     p.add_argument("--frames", type=int, default=100)
     p.add_argument("--size", default="512x512")
     p.add_argument("-o", "--output", default="out.ppm")
@@ -42,6 +50,8 @@ def parse_args(argv=None):
                    help="samples per pixel per frame (default 1): the same "
                         "primary ray traced again with the RNG state carried "
                         "across samples")
+    p.add_argument("--bounces", type=int, default=None,
+                   help="bounces a path (default: the scene's own)")
     p.add_argument("--mono", action="store_true",
                    help="triangle scenes: one whole-frame kernel launch per "
                         "frame instead of the wavefront stream")
@@ -53,17 +63,36 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def resolve_scene_id(args) -> int:
+    """``--scene`` if given, else the positional id; a random id in 1..7
+    when that is absent or not a number (the reference's
+    ``App::parse_args``, ``src/app.rs:36-41``)."""
+    if args.scene_opt is not None:
+        return args.scene_opt
+    fallback = random.randint(1, 7)
+    if args.scene is None:
+        return fallback
+    try:
+        return int(args.scene)
+    except ValueError:
+        return fallback
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    scene_id = resolve_scene_id(args)
     w, h = (int(v) for v in args.size.lower().split("x"))
-    if args.scene == 2:
+    if scene_id == 2:
         sd = scenes.scene_sphere_globe(w, h, device=args.device,
                                        seed=args.seed)
     else:
-        sd = scenes.build_scene(args.scene, w, h, device=args.device)
+        sd = scenes.build_scene(scene_id, w, h, device=args.device)
     if args.spp is not None:
         sd = dataclasses.replace(sd, config=dataclasses.replace(
             sd.config, samples_per_frame=args.spp))
+    if args.bounces is not None:
+        sd = dataclasses.replace(sd, config=dataclasses.replace(
+            sd.config, bounces=args.bounces))
     if args.mono:
         sd = dataclasses.replace(sd, config=dataclasses.replace(
             sd.config, tris_path="mono"))
@@ -71,7 +100,7 @@ def main(argv=None) -> int:
         sd = dataclasses.replace(sd, config=dataclasses.replace(
             sd.config, backend="oracle"))
     spp = sd.config.samples_per_frame
-    print(f"scene {args.scene} ({sd.name}), {w}x{h}, {args.frames} frames, "
+    print(f"scene {scene_id} ({sd.name}), {w}x{h}, {args.frames} frames, "
           f"bounces={sd.config.bounces}, spp={spp}, device={args.device}, "
           f"backend={sd.config.backend}",
           file=sys.stderr)

@@ -10,7 +10,9 @@ raises; nothing falls back to the plain versions.
 Flags: ``-fmad=false`` keeps ``a*b+c`` as two rounded operations, which is
 what the plain PyTorch versions compute, so kernel and plain version can be
 held to each other bit for bit.  No ``--use_fast_math``: division and square
-root stay IEEE.
+root stay IEEE.  ``-Xptxas -v`` puts each kernel's registers, shared memory
+and spills in the log (``ptxas_usage``); ``sass_summary`` reads the built
+code back with ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -60,7 +63,8 @@ _SIGNATURES = {
 
 
 # load()'s result: the launch functions of every built source as attributes,
-# the compiler's log (registers, spills per kernel) as ``build_log``
+# the compiler's log (registers, spills per kernel) as ``build_log``, each
+# library's path by source in ``paths``
 _kernels: SimpleNamespace | None = None
 
 
@@ -109,8 +113,9 @@ def load() -> SimpleNamespace:
     # one nvcc per source, all started together
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         built = list(pool.map(lambda s: _compile(nvcc, s), sources))
-    k = SimpleNamespace()
+    k = SimpleNamespace(paths={})
     for (stem, functions), (path, _) in zip(_SIGNATURES.items(), built):
+        k.paths[stem] = path
         lib = ctypes.CDLL(path)
         for name, argtypes in functions.items():
             fn = getattr(lib, name)
@@ -123,6 +128,79 @@ def load() -> SimpleNamespace:
     k.build_log = "\n".join(log for _, log in built)
     _kernels = k
     return k
+
+
+def short_name(mangled: str) -> str:
+    """``rt::name<bool, ...>`` from the mangled name of a kernel of
+    namespace ``rt`` (its bool template arguments only); anything else
+    unchanged."""
+    m = re.match(r"_ZN2rt(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    args = re.match(r"I((?:Lb[01]E)+)E", mangled[start + int(m.group(1)):])
+    if args:
+        bools = re.findall(r"Lb([01])E", args.group(1))
+        name += "<" + ", ".join("true" if b == "1" else "false"
+                                for b in bools) + ">"
+    return name
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Registers, shared memory, stack and spills of each kernel in a
+    ``-Xptxas -v`` log, in the order compiled."""
+    out, cur, props = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(kernel=short_name(m.group(1)))
+            out.append(cur)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None and props is not None \
+                and short_name(props) == cur["kernel"]:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_summary(path: str) -> dict:
+    """Per kernel of a built library (``cuobjdump -sass``): instructions,
+    and how many are MUFU.RCP (the reciprocal's approximation), FCHK (a full
+    IEEE division's range check), CALL (a slow path), BAR (barriers) and
+    local-memory loads and stores."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = out.setdefault(short_name(m.group(1)), dict(
+                instructions=0, mufu_rcp=0, fchk=0, call=0, bar=0, local=0))
+            continue
+        if cur is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            continue
+        cur["instructions"] += 1
+        cur["mufu_rcp"] += "MUFU.RCP" in line
+        cur["fchk"] += "FCHK" in line
+        cur["call"] += "CALL" in line
+        cur["bar"] += bool(re.search(r"\bBAR\.", line))
+        cur["local"] += bool(re.search(r"\b(LDL|STL)\b", line))
+    return out
 
 
 def check(lib: SimpleNamespace, code: int, what: str) -> None:

@@ -24,9 +24,9 @@
 // here it keeps it, and the index planes of the bounces a tile did not run
 // are filled with -1, which is what its dead lanes would have written.
 //
-// Bound: operations, as for the wavefront kernels: ~47 f32 operations per
-// (ray, triangle) pair on 52 bytes of triangle that the block reads at one
-// address; a pixel writes 12 bytes, the recorder 4 more per bounce.  After
+// Bound: operations, as for the wavefront kernels: ~46 f32 operations per
+// (ray, triangle) pair, the triangles staged in shared memory by
+// trace_bounce; a pixel writes 12 bytes, the recorder 4 more per bounce.  After
 // bounce 0 a pixel tile's rays scatter, the tile's union touches most chunks,
 // and the cull prunes little: the wavefront path exists to sort them.
 //
@@ -75,7 +75,8 @@ __global__ void tris_mono_kernel(Tables t, const int* __restrict__ order,
 
 // ---- plain C interface (loaded with ctypes) ---------------------------------
 // Pointers are device pointers except ``cam`` (20 host floats).  Each function
-// launches on ``stream`` and returns cudaGetLastError() as an int.
+// launches on ``stream`` and returns cudaGetLastError() as an int
+// (cudaErrorInvalidValue, launching nothing, when ``chunk`` is not CHUNK).
 
 // out: (3, Hp, Wp) f32.  idx: (bounces, Hp, Wp) i32 for the recorder (which
 // is launched with spp 1 and row0 0), or null for the render kernel.
@@ -87,7 +88,8 @@ extern "C" int rt_tris_mono(
         int bounces, int spp, int normalize_defocus_dir,
         int normalize_reflect_in, int has_metal, int has_dielectric,
         int sky_from_final_dir, void* stream) {
-    rt::Tables t = {tab, mats, chunks, n_chunks, chunk, n_mats,
+    if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
+    rt::Tables t = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
     rt::Frame f = rt::make_frame(
         cam, time, row0, height, width, height_pad, width_pad, tw, bounces,

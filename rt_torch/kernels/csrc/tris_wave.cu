@@ -5,14 +5,14 @@
 //   wave_bounce_kernel  replaces rt/kernels/tris_kernel.py:_wave_bounce_kernel
 //                       (n_bounces fused bounces over one tile of the sorted
 //                       ray stream, payload updated in place)
-//   wave_first_kernel<true>, wave_bounce_kernel<true>
+//   wave_first_kernel<true, *>, wave_bounce_kernel<true, *>
 //                       replace the same two with track_idx=True, as
 //                       render_color_tris_wave_record launches them (K10a,
 //                       K10b): the same bounce, and per bounce the winning
 //                       row of the triangle table, -1 on a miss or a dead
 //                       ray, for the path-replay gradients on large meshes.
-//                       The <false> instances are the render kernels as
-//                       they were: the flag only adds the index stores.
+//                       The <false, *> instances are the render kernels:
+//                       the flag only adds the index stores.
 //   wave_raygen_kernel  replaces rt/kernels/tris_kernel.py:_wave_raygen_kernel
 //                       (primary rays only, for more than one sample per
 //                       pixel: every sample's bounces start from them)
@@ -23,23 +23,34 @@
 // bound by bytes.
 //
 // What the TPU kernel does on (th, tw) planes with selects, this does with
-// one thread per ray; one block is one tile.  The tile is the unit of two
-// decisions that change which (ray, triangle) pairs are tested, so it is
-// kept: a chunk of 32 triangles is scanned only when some live ray of the
-// TILE enters its box nearer than its best hit (the TPU's
-// lax.cond(jnp.any(live)) becomes __syncthreads_or), and chunks are visited
-// in a per-tile front-to-back order read at blockIdx * n_chunks.  Inside a
-// live chunk every live ray of the tile scans all 32 triangles in ascending
-// index with strict t < best, also a ray whose own box test failed: that is
-// what the plain version does, and it keeps the image equal at equal tile
-// shape.  Rays that are already dead skip the scan; their result is
-// discarded by the hit mask in either version.
+// one thread (the bounce kernel: TRACE_LANES threads) per ray; one block
+// is one tile.  The tile is the unit of two decisions that change which
+// (ray, triangle) pairs are tested, so it is kept: a chunk of 32 triangles
+// is scanned only when some live ray of the TILE enters its box nearer than
+// its best hit (the TPU's lax.cond(jnp.any(live)) becomes a block vote), and
+// chunks are visited in a per-tile front-to-back order read at blockIdx *
+// n_chunks.  Inside a live chunk every live ray of the tile scans all 32
+// triangles in ascending index with strict t < best, also a ray whose own
+// box test failed: that is what the plain version does, and it keeps the
+// image equal at equal tile shape.  Rays that are already dead skip the
+// scan; their result is discarded by the hit mask in either version.
 //
-// Bound: operations.  The scan does ~47 f32 operations per (ray, triangle)
-// pair on 52 bytes of triangle that the whole block reads at one address (a
-// broadcast served from L1), while the payload is 23 words per ray per
-// launch (the recorder writes one more word per ray and bounce).  No
-// shared-memory staging or tensor-core use yet; see PERF.md.
+// Bound: operations.  The scan does 46 f32 operations per (ray, triangle)
+// pair and the box test 24 per (ray, chunk), while the payload is 23 words
+// per ray per launch (the recorder writes one more word per ray and
+// bounce).  trace_bounce (tris_trace.cuh) votes once a batch of 32 boxes
+// and once a candidate chunk, stages a candidate's triangles in shared
+// memory and leaves a pair at its first failed test.  What is left bounds
+// both kernels: the issue rate of ~80 instructions a warp-pair and ~30 a
+// box test, and, after a bounce, the latency of the heaviest tiles, which
+// the bounce kernel's lane groups cut.
+//
+// Launch bounds: tiles of at most TRACE_BLOCK rays (the default 8x16) take
+// the BOUNDED instances, __launch_bounds__(lanes * TRACE_BLOCK); larger
+// tiles the ones bounded by 1024 threads and one lane a ray.  No minimum of
+// blocks an SM: the kernels compile to 53-60 registers a thread (64 with
+// the index stores at two lanes) with no spills, and a minimum that
+// forces 40 or 48 registers spills and was slower on an H100 (PERF.md).
 //
 // Built with -fmad=false: the plain version rounds every multiply and add,
 // so the kernel must not contract them.
@@ -51,12 +62,27 @@
 
 namespace rt {
 
+constexpr int TRACE_BLOCK = 128;
+// lanes a ray of the bounded bounce kernel (trace_bounce's LANES)
+constexpr int TRACE_LANES = 2;
+
+// An instance is BOUNDED for tiles of at most TRACE_BLOCK rays: the bounce
+// kernel then runs TRACE_LANES lanes a ray, so blocks of that many times
+// tile threads; else one lane a ray, any tile the wrappers allow.
+__host__ __device__ constexpr int bounce_lanes(bool bounded) {
+    return bounded ? TRACE_LANES : 1;
+}
+constexpr int max_threads(bool bounded, int lanes) {
+    return bounded ? lanes * TRACE_BLOCK : 1024;
+}
+
 // grid (Wp/tw, Hp/th, F), block th*tw.  Outputs are (F*Hp, Wp) planes in
 // image order; payf holds 10 of them: o(3) d(3) atten(3) primary_dy.
 // TRACK_IDX (the recorder, K10a): idx_out gets the winning row of the
 // triangle table, -1 on a miss; unused without it.
-template <bool TRACK_IDX>
-__global__ void wave_first_kernel(
+template <bool TRACK_IDX, bool BOUNDED>
+__global__ void __launch_bounds__(max_threads(BOUNDED, 1))
+wave_first_kernel(
         Tables p, const int* __restrict__ order, CameraRow cam,
         const uint32_t* __restrict__ times, int row0, int height, int width,
         int height_pad, int width_pad, int tw, int normalize_defocus_dir,
@@ -130,13 +156,17 @@ __global__ void wave_raygen_kernel(
 // TRACK_IDX (the recorder, K10b): idx_out is (n_bounces, n) and plane b gets
 // bounce b's winning row of the triangle table, -1 on a miss, on a dead ray
 // and in every bounce a tile skipped; unused without it.
-template <bool TRACK_IDX>
-__global__ void wave_bounce_kernel(
+template <bool TRACK_IDX, bool BOUNDED>
+__global__ void __launch_bounds__(
+        max_threads(BOUNDED, bounce_lanes(BOUNDED)))
+wave_bounce_kernel(
         Tables p, const int* __restrict__ tile_order, size_t n, int n_bounces,
         float* __restrict__ pay, uint32_t* __restrict__ state,
         int* __restrict__ active, int* __restrict__ wch_out,
         int* __restrict__ idx_out) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    constexpr int L = bounce_lanes(BOUNDED);
+    const bool lead = threadIdx.x % L == 0;  // stores the group's ray
+    const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / L;
     const int* order = tile_order + (size_t)blockIdx.x * p.n_chunks;
 
     Ray r;
@@ -153,9 +183,10 @@ __global__ void wave_bounce_kernel(
         // and a tile with no live ray stays so for the remaining bounces
         if (!__syncthreads_or(r.active > 0)) break;
         int tid;
-        wch = trace_bounce<TRACK_IDX>(p, order, r, tid);
-        if (TRACK_IDX) idx_out[b * n + i] = tid;
+        wch = trace_bounce<TRACK_IDX, L>(p, order, r, tid);
+        if (TRACK_IDX && lead) idx_out[b * n + i] = tid;
     }
+    if (!lead) return;
     // the planes of the bounces the tile skipped: what the TPU kernel's dead
     // lanes write
     if (TRACK_IDX)
@@ -179,8 +210,35 @@ __global__ void wave_bounce_kernel(
 
 // ---- plain C interface (loaded with ctypes) ---------------------------------
 // Pointers are device pointers except ``cam`` (20 host floats).  Each function
-// launches on ``stream`` and returns cudaGetLastError() as an int.  ``idx``
-// non-null launches the recording instance (K10a, K10b), null the render one.
+// launches on ``stream`` and returns cudaGetLastError() as an int
+// (cudaErrorInvalidValue, launching nothing, when ``chunk`` is not CHUNK).
+// ``idx`` non-null launches the recording instance (K10a, K10b), null the
+// render one.
+
+namespace {
+
+template <bool TRACK_IDX, bool BOUNDED>
+void launch_first(dim3 grid, int block, cudaStream_t stream,
+                  const rt::Tables& p, const int* order,
+                  const rt::CameraRow& row, const uint32_t* times, int row0,
+                  int height, int width, int height_pad, int width_pad,
+                  int tw, int normalize_defocus_dir, float* payf,
+                  uint32_t* state, int* active, int* wch, int* idx) {
+    rt::wave_first_kernel<TRACK_IDX, BOUNDED><<<grid, block, 0, stream>>>(
+        p, order, row, times, row0, height, width, height_pad, width_pad,
+        tw, normalize_defocus_dir, payf, state, active, wch, idx);
+}
+
+template <bool TRACK_IDX, bool BOUNDED>
+void launch_bounce(unsigned grid, int block, cudaStream_t stream,
+                   const rt::Tables& p, const int* tile_order, size_t n,
+                   int n_bounces, float* pay, uint32_t* state, int* active,
+                   int* wch, int* idx) {
+    rt::wave_bounce_kernel<TRACK_IDX, BOUNDED><<<grid, block, 0, stream>>>(
+        p, tile_order, n, n_bounces, pay, state, active, wch, idx);
+}
+
+}  // namespace
 
 extern "C" int rt_wave_first(
         const float* tab, const float* mats, const float* chunks,
@@ -190,21 +248,21 @@ extern "C" int rt_wave_first(
         int height_pad, int width_pad, int n_frames, int th, int tw,
         int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
         int has_dielectric, void* stream) {
-    rt::Tables p = {tab, mats, chunks, n_chunks, chunk, n_mats,
+    if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
+    rt::Tables p = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
     rt::CameraRow row;
     for (int c = 0; c < 20; ++c) row.v[c] = cam[c];
     dim3 grid(width_pad / tw, height_pad / th, n_frames);
-    if (idx)
-        rt::wave_first_kernel<true><<<grid, th * tw, 0,
-                                      (cudaStream_t)stream>>>(
-            p, order, row, times, row0, height, width, height_pad, width_pad,
-            tw, normalize_defocus_dir, payf, state, active, wch, idx);
-    else
-        rt::wave_first_kernel<false><<<grid, th * tw, 0,
-                                       (cudaStream_t)stream>>>(
-            p, order, row, times, row0, height, width, height_pad, width_pad,
-            tw, normalize_defocus_dir, payf, state, active, wch, nullptr);
+    const int block = th * tw;
+    const bool bounded = block <= rt::TRACE_BLOCK;
+    auto launch = idx ? (bounded ? launch_first<true, true>
+                                 : launch_first<true, false>)
+                      : (bounded ? launch_first<false, true>
+                                 : launch_first<false, false>);
+    launch(grid, block, (cudaStream_t)stream, p, order, row, times, row0,
+           height, width, height_pad, width_pad, tw, normalize_defocus_dir,
+           payf, state, active, wch, idx);
     return (int)cudaGetLastError();
 }
 
@@ -214,18 +272,18 @@ extern "C" int rt_wave_bounce(
         int* wch, int* idx, long long n, int tile, int n_bounces,
         int n_chunks, int chunk, int n_mats, int normalize_reflect_in,
         int has_metal, int has_dielectric, void* stream) {
-    rt::Tables p = {tab, mats, chunks, n_chunks, chunk, n_mats,
+    if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
+    rt::Tables p = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
     const unsigned grid = (unsigned)(n / tile);
-    if (idx)
-        rt::wave_bounce_kernel<true><<<grid, tile, 0, (cudaStream_t)stream>>>(
-            p, tile_order, (size_t)n, n_bounces, pay, state, active, wch,
-            idx);
-    else
-        rt::wave_bounce_kernel<false><<<grid, tile, 0,
-                                        (cudaStream_t)stream>>>(
-            p, tile_order, (size_t)n, n_bounces, pay, state, active, wch,
-            nullptr);
+    const bool bounded = tile <= rt::TRACE_BLOCK;
+    auto launch = idx ? (bounded ? launch_bounce<true, true>
+                                 : launch_bounce<true, false>)
+                      : (bounded ? launch_bounce<false, true>
+                                 : launch_bounce<false, false>);
+    launch(grid, tile * rt::bounce_lanes(bounded), (cudaStream_t)stream, p,
+           tile_order, (size_t)n,
+           n_bounces, pay, state, active, wch, idx);
     return (int)cudaGetLastError();
 }
 

@@ -196,9 +196,16 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
     carry: (state int64, o3, d3, atten3, active int32), each (n_tiles, T).
     Returns (state, o3, d3, atten3, active, winning chunk id or -1).
     scan_counts: optional list; gets one [ray-chunk scans, ray-chunk box
-    tests] entry appended — the work this bounce's data asked for: every
-    live ray of a tile scans each chunk that is live for the tile, and
-    every ray of a tile with a live ray tests every chunk's box.
+    tests, tile-chunk visits, candidates, tile-chunk scans, the most
+    chunks one tile scans] entry appended — the work this bounce's data
+    asked for: every live ray of a tile scans each chunk that is live for
+    the tile, and every ray of a tile with a live ray tests every chunk's
+    box.  The next three count per tile with a live ray: every chunk of its
+    order (visits); the chunks whose box some live ray of the tile enters
+    at t >= 0 whatever its best t (candidates: the bits of the kernel's
+    batch mask, each of which the kernel stages and votes on); the chunks
+    it scans.  The last is the heaviest tile's share of those, which a
+    block runs alone once the others are done.
     """
     tab, mats, chunks = packed.tab, packed.mats, packed.chunks
     state, o, d, atten, active = carry
@@ -211,7 +218,8 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
     wch = torch.full_like(active, -1)
     btid = torch.full_like(active, -1) if track_idx else None
     alive_per_tile = alive.sum(dim=1)
-    scans = 0
+    scans = candidates = 0
+    tile_scans = torch.zeros_like(alive_per_tile)
 
     for oi in range(packed.n_chunks):
         ci = order[:, oi]                                   # (n_tiles,)
@@ -229,10 +237,14 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
                      _fmax(t0z, t1z))
         live = alive & (tmin <= tmax) & (tmax >= 0.0) & (tmin < bt)
         tile_live = live.any(dim=1, keepdim=True)           # (n_tiles, 1)
+        if scan_counts is not None:
+            entered = alive & (tmin <= tmax) & (tmax >= 0.0)
+            candidates += int(entered.any(dim=1).sum())
         if not bool(tile_live.any()):
             continue
         if scan_counts is not None:
             scans += int((alive_per_tile * tile_live[:, 0]).sum())
+            tile_scans += tile_live[:, 0]
 
         prev = bt
         lo = ci * chunk
@@ -263,8 +275,10 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
         wch = torch.where(bt < prev, ci[:, None].to(wch.dtype), wch)
 
     if scan_counts is not None:
-        boxes = int((alive_per_tile > 0).sum()) * alive.shape[1]
-        scan_counts.append([scans, boxes * packed.n_chunks])
+        tiles = int((alive_per_tile > 0).sum())
+        scan_counts.append([scans, tiles * alive.shape[1] * packed.n_chunks,
+                            tiles * packed.n_chunks, candidates,
+                            int(tile_scans.sum()), int(tile_scans.max())])
 
     hit = alive & (bt != _FLT_MAX)
 
@@ -448,6 +462,9 @@ def _check_block(th: int, tw: int):
 def _require_tables(packed: PackedScene, chunk: int):
     m_pad = packed.tab.shape[0]
     _require(packed.tab, "tab", torch.float32, (m_pad, TRI_COLS))
+    if packed.tab.data_ptr() % 16:
+        raise ValueError("tab: the kernels copy chunks with 16-byte loads; "
+                         "need a 16-byte aligned table")
     _require(packed.mats, "mats", torch.float32, (packed.mats.shape[0], 5))
     _require(packed.chunks, "chunks", torch.float32, (m_pad // chunk, 6))
 

@@ -7,6 +7,7 @@
     python -m rt_torch.measure lookup [FIT]       # row lookups, forward+backward
     python -m rt_torch.measure record [FIT]       # one record, mono vs wave
     python -m rt_torch.measure oracle [PATH]      # ms per frame, oracle
+    python -m rt_torch.measure kernels            # ms per launch, K2 K3 K7 K9 K10
 
 PATH names one of the port's render paths (``PATHS`` below, the table
 ``chip_smoke.py`` drives too; default ``suzanne``: Suzanne 512x512, 8
@@ -18,6 +19,11 @@ without a card.  Every line carries the card's name and power limit as
 A wall time is taken over a window of at least ``MIN_WINDOW_S`` seconds that
 ends in a synchronise: a path whose frame is a few tens of microseconds is
 not read off a few milliseconds.
+
+``kernels`` uses only wrappers that every version of the port has, so it
+also runs an older tree's kernels: unpack that tree, copy this file over
+its ``rt_torch/measure.py`` and run it there (the paired protocol: parent,
+change, change, parent in one call, README).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -36,7 +43,7 @@ from rt_torch.core.sphere import SphereArray
 from rt_torch.grad import replay
 from rt_torch.grad.params import SphereParams, TriangleParams
 from rt_torch.grad.train import fit_replay
-from rt_torch.kernels import dispatch
+from rt_torch.kernels import dispatch, tris_kernel
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes
 
@@ -380,6 +387,161 @@ def record(name: str = "lucy_512", reps: int = 5):
         "hit_ids_differ": float((im != iw).float().mean())}), flush=True)
 
 
+def wave_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
+    """K2's inputs on one frame of ``make_scene`` at size x size (the
+    tables, tile, flags and eye order the scene's wave path gives it), K2's
+    output ``first``, and K3's inputs on the sorted stream after bounce 0
+    (``pay0``, ``state0``, ``active0``, ``tile_order``) under the path's
+    coherence key."""
+    sd = make_scene(size, size, device=device)
+    kw = dispatch.wave_params(sd.scene, sd.config)
+    th, tw = kw["th"], kw["tw"]
+    packed = dispatch.pack_scene(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    eye = torch.from_numpy(cam_row[0, 0:3].copy()).to(device)
+    order = tris_kernel.chunk_order(packed.centroid, eye)
+    times = torch.tensor([1000], dtype=torch.int32, device=device)
+    first_kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+                    th=th, tw=tw,
+                    normalize_defocus_dir=kw["normalize_defocus_dir"])
+    first = tris_kernel.wave_first(packed, order, cam_row, times, 0,
+                                   kw["flags"], **first_kw)
+    payf, state, active, wch = first
+    bounds = (tris_kernel.scene_bounds(packed.chunks)
+              if kw["key_mode"] == "morton" else None)
+    key, perm = torch.sort(
+        tris_kernel.stream_key(payf, active, wch, kw["key_mode"], bounds),
+        stable=True)
+    pay0 = payf[0:9][:, perm].contiguous()
+    return SimpleNamespace(
+        sd=sd, kw=kw, th=th, tw=tw, flags=kw["flags"], packed=packed,
+        cam_row=cam_row, order=order, times=times, first_kw=first_kw,
+        first=first, pay0=pay0, state0=state[perm].contiguous(),
+        active0=(key != tris_kernel.DEAD_KEY).to(torch.int32),
+        tile_order=tris_kernel.tile_chunk_order(packed, pay0, th * tw))
+
+
+def raygen_state(size: int, device="cuda") -> SimpleNamespace:
+    """K3's inputs as the paths of more than one sample per pixel launch
+    it first: Suzanne's primary rays from K4 at size x size, every ray
+    alive, in pixel order."""
+    sd = scenes.scene_suzanne(size, size, device=device)
+    kw = dispatch.wave_params(sd.scene, sd.config)
+    th, tw = kw["th"], kw["tw"]
+    packed = dispatch.pack_scene(sd.scene)
+    times = torch.tensor([1000], dtype=torch.int32, device=device)
+    od, _, state = tris_kernel.wave_raygen(
+        dispatch.pack_camera(sd.camera), times, 0, height=size, width=size,
+        height_pad=size, width_pad=size, th=th, tw=tw,
+        normalize_defocus_dir=kw["normalize_defocus_dir"])
+    pay0 = torch.cat([od, torch.ones_like(od[0:3])])
+    return SimpleNamespace(
+        sd=sd, th=th, tw=tw, flags=kw["flags"], packed=packed, pay0=pay0,
+        state0=state, active0=torch.ones_like(state),
+        tile_order=tris_kernel.tile_chunk_order(packed, pay0, th * tw))
+
+
+def _bounce_ms(st, n_bounces: int, reps: int, track_idx: bool = False):
+    """Mean ms of one K3 (K10b with track_idx) launch from ``st``'s stream
+    state, each launch on a fresh copy (the kernel updates in place)."""
+    bufs = iter([(st.pay0.clone(), st.state0.clone(), st.active0.clone())
+                 for _ in range(reps + 1)])
+    kw = dict(n_bounces=n_bounces, th=st.th, tw=st.tw)
+    if track_idx:
+        kw["track_idx"] = True
+    return _event_ms(lambda: tris_kernel.wave_bounce(
+        st.packed, st.tile_order, *next(bufs), st.flags, **kw), reps)
+
+
+def _wave_ms(make_scene, size: int, bounces_fused, reps: int) -> dict:
+    """ms of K2 and of K3 at each fused count on ``wave_state``'s stream."""
+    st = wave_state(make_scene, size)
+    out = {"K2": _event_ms(lambda: tris_kernel.wave_first(
+        st.packed, st.order, st.cam_row, st.times, 0, st.flags,
+        **st.first_kw), reps)}
+    for nb in bounces_fused:
+        out[f"K3 b{nb}"] = _bounce_ms(st, nb, reps)
+    return out
+
+
+def _mono_ms(width: int, height: int, bounces: int, record_: bool,
+             reps: int) -> float:
+    """K7 (K9 with ``record_``) on Suzanne at the default tile."""
+    sd = scenes.scene_suzanne(width, height, device="cuda")
+    packed = dispatch.pack_scene(sd.scene)
+    th, tw = dispatch.DEFAULT_TILE
+    kw = dict(height=height, width=width, height_pad=height, width_pad=width,
+              bounces=bounces, normalize_defocus_dir=True,
+              flags=dispatch.trace_flags(sd.config), th=th, tw=tw)
+    fn = (tris_kernel.render_color_tris_record if record_
+          else tris_kernel.render_color_tris)
+    cam_row = dispatch.pack_camera(sd.camera)
+    return _event_ms(lambda: fn(packed, cam_row, 1000, **kw), reps)
+
+
+def record_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
+    """K10a's inputs on one frame of ``make_scene`` at size x size, over the
+    tables the recorder packs (no split_big) and the eye's order, K10a's
+    output ``first``, and K10b's inputs on the morton-sorted stream after
+    bounce 0."""
+    sd = make_scene(size, size, device=device)
+    th, tw = dispatch.DEFAULT_TILE
+    flags = dispatch.trace_flags(sd.config)
+    packed = tris_kernel.pack_tri_table(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    order = tris_kernel.eye_chunk_order(packed, cam_row)
+    times = torch.tensor([1000], dtype=torch.int32, device=device)
+    first_kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+                    th=th, tw=tw, track_idx=True,
+                    normalize_defocus_dir=sd.config.normalize_defocus_dir)
+    first = tris_kernel.wave_first(packed, order, cam_row, times, 0, flags,
+                                   **first_kw)
+    payf, state, active, _, _ = first
+    key, perm = torch.sort(tris_kernel.ray_sort_key(
+        payf, active, *tris_kernel.scene_bounds(packed.chunks)), stable=True)
+    pay0 = payf[0:9][:, perm].contiguous()
+    return SimpleNamespace(
+        sd=sd, th=th, tw=tw, flags=flags, packed=packed, cam_row=cam_row,
+        order=order, times=times, first_kw=first_kw, first=first, pay0=pay0,
+        state0=state[perm].contiguous(),
+        active0=(key != tris_kernel.DEAD_KEY).to(torch.int32),
+        tile_order=tris_kernel.tile_chunk_order(packed, pay0, th * tw))
+
+
+def _record_wave_ms(size: int, reps: int) -> dict:
+    """K10a, then K10b, on lucy (``record_state``)."""
+    st = record_state(scenes.scene_lucy, size)
+    return {"K10a": _event_ms(lambda: tris_kernel.wave_first(
+                st.packed, st.order, st.cam_row, st.times, 0, st.flags,
+                **st.first_kw), reps),
+            "K10b": _bounce_ms(st, 1, reps, track_idx=True)}
+
+
+def kernels(reps: int = 20):
+    """ms per launch of the kernels on trace_bounce, by CUDA events over
+    ``reps`` launches after one, at ``chip_smoke.py``'s shapes: K2 and K3
+    (2 and 1 fused bounces) on Suzanne 128x128 and 512x512, K3 (2 bounces)
+    on K4's primary rays, K2 and K3 (1 bounce) on dragon 512x512; K7 on
+    Suzanne 512x512 b8, K9 on Suzanne 1920x1080 b5; K10a and K10b on lucy
+    512x512."""
+    card = _card()
+    ms = {}
+    for name, make, size, fused in (
+            ("suzanne 128", scenes.scene_suzanne, 128, (2, 1)),
+            ("suzanne 512", scenes.scene_suzanne, 512, (2, 1)),
+            ("dragon 512", scenes.scene_dragon, 512, (1,))):
+        for k, v in _wave_ms(make, size, fused, reps).items():
+            ms[f"{k} {name}"] = v
+    ms["K3 b2 suzanne 512 from K4"] = _bounce_ms(raygen_state(512), 2, reps)
+    ms["K7 suzanne 512 b8"] = _mono_ms(512, 512, 8, False, reps)
+    ms["K9 suzanne 1920x1080 b5"] = _mono_ms(1920, 1080, 5, True,
+                                             max(2, reps // 4))
+    for k, v in _record_wave_ms(512, reps).items():
+        ms[f"{k} lucy 512"] = v
+    print(json.dumps({"measure": "kernels", "card": card, "reps": reps,
+                      "ms_per_launch": ms}), flush=True)
+
+
 _GROUPS = (
     ("kernel_wave_first", ("wave_first_kernel",)),
     ("kernel_wave_bounce", ("wave_bounce_kernel",)),
@@ -443,7 +605,8 @@ def main(argv=None) -> int:
         print("rt_torch.measure needs a CUDA device", file=sys.stderr)
         return 1
     what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
-            "lookup": lookup, "record": record, "oracle": oracle}
+            "lookup": lookup, "record": record, "oracle": oracle,
+            "kernels": kernels}
     names = FITS if argv[:1] in (["fit"], ["lookup"], ["record"]) else PATHS
     if (len(argv) not in (1, 2) or argv[0] not in what
             or (len(argv) == 2 and argv[1] not in names)):

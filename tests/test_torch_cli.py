@@ -1,0 +1,65 @@
+"""The port's CLI takes the reference's scene id: a positional id,
+``--scene`` over it, and a random id in 1..7 when it is absent or not a
+number (``tests/test_cli.py::test_scene_id_fallback_semantics`` on
+``rt.cli``; the reference's ``App::parse_args``, ``src/app.rs:36-41``)."""
+
+import random
+
+import dataclasses
+
+from rt import cli as jcli
+from rt_torch import cli
+from rt_torch.render.ppm import write_ppm
+from rt_torch.render.renderer import ProgressiveRenderer
+from rt_torch.scene import scenes
+
+
+def test_scene_id_fallback_semantics():
+    ns = cli.parse_args(["5"])
+    assert cli.resolve_scene_id(ns) == 5
+
+    random.seed(123)
+    expect = random.randint(1, 7)
+    random.seed(123)
+    got = cli.resolve_scene_id(cli.parse_args(["not-a-number"]))
+    assert got == expect and 1 <= got <= 7
+
+    random.seed(123)
+    assert cli.resolve_scene_id(cli.parse_args([])) == expect
+
+    ns = cli.parse_args(["3", "--scene", "4"])
+    assert cli.resolve_scene_id(ns) == 4
+    assert cli.resolve_scene_id(cli.parse_args(["--scene", "8"])) == 8
+
+
+def test_scene_id_resolves_as_the_jax_cli_does():
+    """The same argument lists, the same random state: the same id."""
+    for argv in (["5"], ["x"], [], ["3", "--scene", "4"], ["--scene", "2"],
+                 ["8"]):
+        random.seed(7)
+        want = jcli.resolve_scene_id(jcli.parse_args(argv))
+        random.seed(7)
+        assert cli.resolve_scene_id(cli.parse_args(argv)) == want, argv
+
+
+def test_positional_scene_renders(tmp_path):
+    out = tmp_path / "q.ppm"
+    assert cli.main(["3", "--frames", "1", "--size", "16x16", "--device",
+                     "cpu", "-o", str(out)]) == 0
+    assert out.read_text().startswith("P3\n16 16 255\n")
+
+
+def test_bounces_override(tmp_path):
+    """``--bounces`` renders what the scene at that many bounces renders."""
+    out, want = tmp_path / "c.ppm", tmp_path / "w.ppm"
+    assert cli.main(["4", "--bounces", "2", "--frames", "1", "--size",
+                     "16x16", "--device", "cpu", "-o", str(out)]) == 0
+    sd = scenes.build_scene(4, 16, 16, device="cpu")
+    assert sd.config.bounces != 2
+    sd = dataclasses.replace(sd, config=dataclasses.replace(sd.config,
+                                                            bounces=2))
+    r = ProgressiveRenderer(sd, device="cpu")
+    r.set_time(1000)
+    r.draw_frames(1, 10)
+    write_ppm(str(want), r.image)
+    assert out.read_bytes() == want.read_bytes()

@@ -423,3 +423,41 @@ def test_cuda_probe_kernels_against_their_plain_versions():
     assert after["lane_gather"] == before["lane_gather"] + 3
     assert after["mt_scan"] == before["mt_scan"] + 1
     assert after["woop_mma"] == before["woop_mma"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [(4, 8), (8, 16), (16, 16)])
+@pytest.mark.parametrize("name,size,n_chunks,n_bounces", [
+    ("suzanne", 128, 35, 2), ("lucy", 64, 623, 1)])
+def test_cuda_trace_kernels_equal_plain_at_other_tiles_bitwise(
+        name, size, n_chunks, n_bounces, tile):
+    """K2, then K3 on the sorted stream after bounce 0, at a tile of 32
+    rays (4x8), the default 8x16 (both: K3 at two lanes a ray) and 16x16
+    (one lane a ray, the instances for tiles above 128 rays), on Suzanne
+    (35 chunks: a full box batch and a tail of 3) and lucy (623 chunks: 20
+    batches, the last of 15): every plane bit-equal, the winning-chunk
+    plane included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch import measure
+
+    def make_scene(w, h, device):
+        sd = tscenes.build_scene({"suzanne": 5, "lucy": 6}[name], w, h,
+                                 device=device)
+        return dataclasses.replace(sd, config=dataclasses.replace(
+            sd.config, tile=tile))
+
+    st = measure.wave_state(make_scene, size, "cuda")
+    assert (st.th, st.tw) == tile and st.packed.n_chunks == n_chunks
+    p = ttk.wave_first_plain(st.packed, st.order, st.cam_row, st.times, 0,
+                             st.flags, **st.first_kw)
+    for a, b in zip(st.first, p):
+        assert _bit_equal(a, b)
+    ins = [(st.pay0.clone(), st.state0.clone(), st.active0.clone())
+           for _ in range(2)]
+    kw = dict(n_bounces=n_bounces, th=st.th, tw=st.tw)
+    k = ttk.wave_bounce(st.packed, st.tile_order, *ins[0], st.flags, **kw)
+    p = ttk.wave_bounce_plain(st.packed, st.tile_order, *ins[1], st.flags,
+                              **kw)
+    for a, b in zip((*ins[0], k), (*ins[1], p)):
+        assert _bit_equal(a, b)
