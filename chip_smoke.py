@@ -389,9 +389,8 @@ def compare_spheres(make_scene, width: int, height: int, spp: int,
     if reps:
         rec["wrapper_ms"] = _timed(lambda i: run(), reps)
         # the flat kernel runs for some tens of microseconds: read it from
-        # a graph replay.  The chunked wrapper copies the eye to the card
-        # for its chunk order, which a graph cannot capture, and its kernel
-        # runs for milliseconds: events around the wrapper read it
+        # a graph replay.  The chunked kernel runs for milliseconds: events
+        # around the wrapper (the kernel and its chunk order) read it
         rec["ms"] = (_timed_graph(run, reps) if packed.chunks is None
                      else rec["wrapper_ms"])
         per_ray = width * height * FLOPS_PER_RAYGEN

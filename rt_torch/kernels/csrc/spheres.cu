@@ -29,24 +29,46 @@
 // (9 words a row, sized by the launch; at most 1024 rows, which stays under
 // the 48 KB a block gets without opting in to more; a launch with more rows
 // is refused) and every thread reads the same row at the same time, a
-// broadcast.  A ray that misses stops: a dead ray passes through a bounce
-// unchanged in the TPU kernel, whose whole-tile early exit only skips work,
-// so the image does not depend on the tile.  The recorder then fills the
+// broadcast: centre and radius as one 128-bit load, the pair test
+// hit_sphere (tris_trace.cuh) with its exact early exits.  A ray that
+// misses stops: a dead ray passes through a bounce unchanged in the TPU
+// kernel, whose whole-tile early exit only skips work, so the image does
+// not depend on the tile.  The recorder then fills the
 // index planes of the bounces it did not run with -1; the TPU recorder runs
 // every bounce and its dead lanes write the same -1.
 //
 // Chunked kernel: one block is one (th, tw) pixel tile, and the tile is the
-// unit of the chunk cull, as in the TPU kernel: each thread tests the
-// chunk's box, and if ANY live thread of the block enters it nearer than
-// its best hit (__syncthreads_or) then EVERY live thread scans its 32 rows,
-// also one whose own box test failed.  The image depends on that union at
-// box-surface roundings, so it is kept.  A dead thread keeps voting (false)
-// until the whole block is dead; padding pixels trace and vote like any
-// other; padding rows have radius -1e30 (r*r = +inf, t = -inf) and miss
-// without a NaN.
+// unit of the chunk cull, as in the TPU kernel: if ANY live ray of the block
+// enters a chunk's box nearer than its best hit, EVERY live ray scans its 32
+// rows, also one whose own box test failed.  The image depends on that union
+// at box-surface roundings, so it is kept.  A dead thread keeps voting
+// (false) until the whole block is dead; padding pixels trace and vote like
+// any other; padding rows have radius -1e30 (r*r = +inf, t = -inf) and miss
+// without a NaN.  It runs the cull loop of the triangle kernels over
+// spheres (tris_trace.cuh: cull_scan with the Sph primitive, packed_scan):
+//   - the chunk votes batched, 32 visit entries a barrier (cover's 16
+//     entries are one batch), then the exact vote on the tile's candidate
+//     bits only, the slab test's min/max as fminf/fmaxf (exact in every
+//     comparison);
+//   - a candidate chunk's centres and radii staged in shared memory, one
+//     16-byte row a sphere, double-buffered, so a pair reads one 128-bit
+//     broadcast; only candidates are staged, so shared memory does not grow
+//     with the sphere count (the albedo and parameter are read from the
+//     table once a bounce, for the winner);
+//   - a scan unrolled over the chunk's 32 rows, with the exact early exits
+//     of hit_sphere (most pairs miss at the discriminant);
+//   - the live rays packed into the block's first warps each bounce, at
+//     one thread a ray, and at more lanes (up to PACK_MAX_LANES) where few
+//     live, merged by least (t, index); the ray's own thread resolves and
+//     scatters it from the winning row the scan returns.
+// These choices were timed on an H100 against two lanes a ray, no packing
+// and a one-phase scan, which were slower (PERF.md).
 //
 // Bound: operations.  A (ray, sphere) pair costs ~23 f32 operations on 16
-// bytes of row that the whole block shares; a pixel writes 12 bytes.
+// bytes of row that the whole block shares; a pixel writes 12 bytes.  On
+// cover, with a thread a pixel, the warps issued ~2.9x the pairs the bound
+// counts: from bounce 2 on 3-27 % of the rays live, in 42-74 % of the warps
+// (the plain version's carry at 320x180, PERF.md).
 //
 // Built with -fmad=false: the plain versions round every multiply and add,
 // so the kernels must not contract them.
@@ -54,42 +76,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rt_device.cuh"
+#include "tris_trace.cuh"
 
 namespace rt {
 
-constexpr int SPH_COLS = 8;  // centre(3) radius albedo(3) material parameter
 constexpr int MAX_STAGED_SPHERES = 1024;  // rows the flat kernels stage
-
-struct Quadratic {
-    Vec3 o, d;
-    float two_a, four_a;  // hoisted: d is fixed within a bounce
-};
-
-__device__ __forceinline__ Quadratic hoist(const Ray& r) {
-    float a = dot3(r.d, r.d);
-    return {r.o, r.d, 2.0f * a, 4.0f * a};
-}
-
-// One (ray, sphere) pair: near root only, -1 on a negative discriminant,
-// strict 0 < t < best.
-__device__ __forceinline__ void scan_sphere(const float* row, int si,
-                                            const Quadratic& q, float& bt,
-                                            int& bidx) {
-    Vec3 oc = sub3(q.o, {row[0], row[1], row[2]});
-    float r = row[3];
-    float b = 2.0f * dot3(oc, q.d);
-    float cc = dot3(oc, oc) - r * r;
-    float disc = b * b - q.four_a * cc;
-    // maximum(disc, 0) that keeps a NaN, as a select (fmaxf would drop it)
-    float sq = sqrtf(disc < 0.0f ? 0.0f : disc);
-    float t = (-b - sq) / q.two_a;
-    if (disc < 0.0f) t = -1.0f;
-    if (t > 0.0f && t < bt) {
-        bt = t;
-        bidx = si;
-    }
-}
 
 // Hit record from the winning row, scatter, carry update.
 __device__ __forceinline__ void resolve_hit(const float* row, int kind,
@@ -121,7 +112,8 @@ __global__ void spheres_kernel(const float* __restrict__ tab,
                                const int* __restrict__ kinds, int n_spheres,
                                Frame f, float* __restrict__ out,
                                int* __restrict__ idx) {
-    extern __shared__ float s_tab[];
+    extern __shared__ float4 s_dyn[];
+    float* s_tab = reinterpret_cast<float*>(s_dyn);
     int* s_kind = reinterpret_cast<int*>(s_tab + n_spheres * SPH_COLS);
     for (int i = threadIdx.x; i < n_spheres * SPH_COLS; i += blockDim.x)
         s_tab[i] = tab[i];
@@ -137,11 +129,16 @@ __global__ void spheres_kernel(const float* __restrict__ tab,
         Ray r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
         int b = 0;
         for (; b < f.bounces; ++b) {
-            const Quadratic q = hoist(r);
+            const Quadratic q = Sph::ray(r.o, r.d);
             float bt = FLT_MAX_WGSL;
             int bidx = -1;
-            for (int si = 0; si < n_spheres; ++si)
-                scan_sphere(s_tab + si * SPH_COLS, si, q, bt, bidx);
+            for (int si = 0; si < n_spheres; ++si) {
+                float t;
+                if (hit_sphere(s_dyn[si * (SPH_COLS / 4)], q, bt, t)) {
+                    bt = t;
+                    bidx = si;
+                }
+            }
             if (bt == FLT_MAX_WGSL) break;  // escaped to the sky
             if (RECORD) idx[b * plane + pix] = bidx;
             resolve_hit(s_tab + bidx * SPH_COLS, s_kind[bidx], f.flags, bt,
@@ -157,54 +154,34 @@ __global__ void spheres_kernel(const float* __restrict__ tab,
     store_color(f, p, acc, out);
 }
 
-// grid (Wp/tw, Hp/th), block th*tw = one tile.  order: n_chunks visit
-// entries, shared by all tiles.  EVERY thread of the block runs the same
-// number of bounces and chunk steps (block-wide votes inside).
-__global__ void spheres_chunked_kernel(
-        const float* __restrict__ tab, const int* __restrict__ kinds,
-        const float* __restrict__ chunks, const int* __restrict__ order,
-        int n_chunks, int chunk, Frame f, float* __restrict__ out) {
+// grid (Wp/tw, Hp/th), block th*tw = one tile, a thread a pixel.  Dynamic
+// shared memory: th*tw slots of 32 bytes.  order: n_chunks visit entries,
+// shared by all tiles.  EVERY thread of the block runs the same number of
+// bounces (block-wide votes inside).
+template <bool BOUNDED>
+__global__ void __launch_bounds__(max_threads(BOUNDED, 1))
+spheres_chunked_kernel(const float* __restrict__ tab,
+                       const int* __restrict__ kinds,
+                       const float* __restrict__ chunks,
+                       const int* __restrict__ order, int n_chunks, Frame f,
+                       float* __restrict__ out) {
+    extern __shared__ float4 s_dyn[];
     Pixel p = primary_ray(f);
     Vec3 acc = {0.0f, 0.0f, 0.0f};
     for (int s = 0; s < f.spp; ++s) {
         Ray r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
         for (int b = 0; b < f.bounces; ++b) {
-            // block-uniform exit once every ray of the tile has escaped
-            if (!__syncthreads_or(r.active > 0)) break;
             const bool alive = r.active > 0;
-            const Quadratic q = hoist(r);
-            const float idx = 1.0f / r.d.x, idy = 1.0f / r.d.y,
-                        idz = 1.0f / r.d.z;
             float bt = FLT_MAX_WGSL;
-            int bidx = -1;
-            for (int oi = 0; oi < n_chunks; ++oi) {
-                const int ci = __ldg(order + oi);
-                const float* box = chunks + ci * 6;
-                float t0x = (__ldg(box + 0) - r.o.x) * idx;
-                float t1x = (__ldg(box + 3) - r.o.x) * idx;
-                float t0y = (__ldg(box + 1) - r.o.y) * idy;
-                float t1y = (__ldg(box + 4) - r.o.y) * idy;
-                float t0z = (__ldg(box + 2) - r.o.z) * idz;
-                float t1z = (__ldg(box + 5) - r.o.z) * idz;
-                float tmin = fmax_w(
-                    fmax_w(fmin_w(t0x, t1x), fmin_w(t0y, t1y)),
-                    fmin_w(t0z, t1z));
-                float tmax = fmin_w(
-                    fmin_w(fmax_w(t0x, t1x), fmax_w(t0y, t1y)),
-                    fmax_w(t0z, t1z));
-                bool live = alive && (tmin <= tmax) && (tmax >= 0.0f)
-                    && (tmin < bt);
-                if (!__syncthreads_or(live)) continue;
-                if (!alive) continue;  // its scan would be discarded
-                const int lo = ci * chunk;
-                for (int k = 0; k < chunk; ++k)
-                    scan_sphere(tab + (size_t)(lo + k) * SPH_COLS, lo + k, q,
-                                bt, bidx);
-            }
+            int win = -1;
+            // block-uniform exit once every ray of the tile has escaped
+            if (!packed_scan<Sph>(tab, chunks, n_chunks, order, alive, r.o,
+                                  r.d, s_dyn, bt, win))
+                break;
             const bool hit = alive && (bt != FLT_MAX_WGSL);
             r.active = hit ? 1 : 0;
             if (hit)
-                resolve_hit(tab + (size_t)bidx * SPH_COLS, __ldg(kinds + bidx),
+                resolve_hit(tab + (size_t)win * SPH_COLS, __ldg(kinds + win),
                             f.flags, bt, r);
         }
         p.state = r.state;
@@ -218,7 +195,9 @@ __global__ void spheres_chunked_kernel(
 
 // ---- plain C interface (loaded with ctypes) ---------------------------------
 // Pointers are device pointers except ``cam`` (20 host floats).  Each function
-// launches on ``stream`` and returns cudaGetLastError() as an int.
+// launches on ``stream`` and returns cudaGetLastError() as an int
+// (cudaErrorInvalidValue, launching nothing, on a row count the flat kernels
+// do not stage or a ``chunk`` that is not CHUNK).
 
 // out: (3, Hp, Wp) f32.  idx: (bounces, Hp, Wp) i32 for the recorder (which
 // is launched with spp 1), or null for the render kernel.
@@ -255,13 +234,19 @@ extern "C" int rt_spheres_chunked(
         int width_pad, int th, int tw, int bounces, int spp,
         int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
         int has_dielectric, int sky_from_final_dir, void* stream) {
+    if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
     rt::Frame f = rt::make_frame(
         cam, time, 0, height, width, height_pad, width_pad, tw, bounces, spp,
         normalize_defocus_dir, normalize_reflect_in, has_metal,
         has_dielectric, sky_from_final_dir);
     dim3 grid(width_pad / tw, height_pad / th);
-    rt::spheres_chunked_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
-        tab, kinds, chunks, order, n_chunks, chunk, f, out);
+    const int rays = th * tw;
+    const bool bounded = rays <= rt::TRACE_BLOCK;
+    const size_t shared = (size_t)rays * 2 * sizeof(float4);
+    auto kernel = bounded ? rt::spheres_chunked_kernel<true>
+                          : rt::spheres_chunked_kernel<false>;
+    kernel<<<grid, rays, shared, (cudaStream_t)stream>>>(
+        tab, kinds, chunks, order, n_chunks, f, out);
     return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,8 @@
 //                            bounce, -1 on a miss or a dead ray, for the
 //                            path-replay gradients)
 //
-// Both run the trace_bounce() of the wavefront kernels (tris_trace.cuh), as
-// the TPU kernels all run one _trace_bounce.  One block is one (th, tw) pixel
+// Both run the cull loop of the wavefront kernels (tris_trace.cuh), as the
+// TPU kernels all run one _trace_bounce.  One block is one (th, tw) pixel
 // tile for the whole frame, and every bounce visits the chunks in one order,
 // front to back from the camera eye (the wavefront kernels order per tile
 // from bounce 1 on, so the two paths may differ where a ray hits two chunks
@@ -19,16 +19,26 @@
 //
 // Every thread of a block must reach every block-wide vote, so the bounce
 // loop's exit is a vote itself (the TPU kernel's lax.cond(jnp.any(active))):
-// a dead thread keeps voting false until the whole tile is dead, and inside
-// trace_bounce it skips only the scan.  The TPU recorder has no such exit;
-// here it keeps it, and the index planes of the bounces a tile did not run
-// are filled with -1, which is what its dead lanes would have written.
+// a dead thread keeps voting false until the whole tile is dead.  The TPU
+// recorder has no such exit; here it keeps it, and the index planes of the
+// bounces a tile did not run are filled with -1, which is what its dead
+// lanes would have written.
 //
 // Bound: operations, as for the wavefront kernels: ~46 f32 operations per
-// (ray, triangle) pair, the triangles staged in shared memory by
-// trace_bounce; a pixel writes 12 bytes, the recorder 4 more per bounce.  After
-// bounce 0 a pixel tile's rays scatter, the tile's union touches most chunks,
-// and the cull prunes little: the wavefront path exists to sort them.
+// (ray, triangle) pair; a pixel writes 12 bytes, the recorder 4 more per
+// bounce.  After bounce 0 a pixel tile's rays scatter, the tile's union
+// touches most chunks, and the cull prunes little; and the dead rays stay in
+// their pixels' threads: on Suzanne at 128x128, 8 bounces, from bounce 2 on
+// 16-32 % of the rays live, but 66-83 % of the warps hold one
+// (PERF.md, `python -m rt_torch.measure occupancy`).
+//
+// Design: packed_scan (tris_trace.cuh, point 5).  Each bounce the block
+// packs its live rays into its first warps and scans them there, at one
+// thread a ray, and at more lanes (up to PACK_MAX_LANES) where few rays
+// live; a ray's own thread resolves its hit from the table row the scan
+// returns and scatters it.  These choices were timed on an H100 against two
+// lanes a ray in blocks of 2 x the tile and against no packing, which were
+// slower (PERF.md).
 //
 // Built with -fmad=false: the plain version rounds every multiply and add,
 // so the kernel must not contract them.
@@ -40,13 +50,15 @@
 
 namespace rt {
 
-// grid (Wp/tw, Hp/th), block th*tw = one tile.  order: n_chunks visit
-// entries, shared by all tiles and bounces.  out is (3, Hp, Wp); idx is
-// (bounces, Hp, Wp) with RECORD, unused without.
-template <bool RECORD>
-__global__ void tris_mono_kernel(Tables t, const int* __restrict__ order,
-                                 Frame f, float* __restrict__ out,
-                                 int* __restrict__ idx) {
+// grid (Wp/tw, Hp/th), block th*tw = one tile, a thread a pixel.  Dynamic
+// shared memory: th*tw slots of 32 bytes.  order: n_chunks visit entries,
+// shared by all tiles and bounces.  out is (3, Hp, Wp); idx is (bounces, Hp,
+// Wp) with RECORD, unused without.
+template <bool RECORD, bool BOUNDED>
+__global__ void __launch_bounds__(max_threads(BOUNDED, 1))
+tris_mono_kernel(Tables t, const int* __restrict__ order, Frame f,
+                 float* __restrict__ out, int* __restrict__ idx) {
+    extern __shared__ float4 slots[];
     Pixel p = primary_ray(f);
     const size_t plane = (size_t)f.height_pad * f.width_pad;
     const size_t pix = (size_t)p.row * f.width_pad + p.col;
@@ -55,11 +67,22 @@ __global__ void tris_mono_kernel(Tables t, const int* __restrict__ order,
         Ray r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
         int b = 0;
         for (; b < f.bounces; ++b) {
+            const bool alive = r.active > 0;
+            float bt = FLT_MAX_WGSL;
+            int win = -1;
             // block-uniform exit once every ray of the tile has escaped
-            if (!__syncthreads_or(r.active > 0)) break;
-            int tid;
-            trace_bounce<RECORD>(t, order, r, tid);
-            if (RECORD) idx[b * plane + pix] = tid;
+            if (!packed_scan<Tri>(t.tab, t.chunks, t.n_chunks, order, alive,
+                                  r.o, r.d, slots, bt, win))
+                break;
+            const bool hit = alive && (bt != FLT_MAX_WGSL);
+            r.active = hit ? 1 : 0;
+            if (hit) {
+                const float* row = t.tab + (size_t)win * TRI_COLS;
+                scatter_tri(t, r, bt,
+                            {__ldg(row + 9), __ldg(row + 10), __ldg(row + 11)},
+                            __ldg(row + 12));
+            }
+            if (RECORD) idx[b * plane + pix] = hit ? win : -1;
         }
         // the planes of the bounces the tile did not run
         if (RECORD)
@@ -96,14 +119,15 @@ extern "C" int rt_tris_mono(
         spp, normalize_defocus_dir, normalize_reflect_in, has_metal,
         has_dielectric, sky_from_final_dir);
     dim3 grid(width_pad / tw, height_pad / th);
-    if (idx)
-        rt::tris_mono_kernel<true><<<grid, th * tw, 0,
-                                     (cudaStream_t)stream>>>(
-            t, order, f, out, idx);
-    else
-        rt::tris_mono_kernel<false><<<grid, th * tw, 0,
-                                      (cudaStream_t)stream>>>(
-            t, order, f, out, nullptr);
+    const int rays = th * tw;
+    const bool bounded = rays <= rt::TRACE_BLOCK;
+    const size_t shared = (size_t)rays * 2 * sizeof(float4);
+    auto kernel = idx ? (bounded ? rt::tris_mono_kernel<true, true>
+                                 : rt::tris_mono_kernel<true, false>)
+                      : (bounded ? rt::tris_mono_kernel<false, true>
+                                 : rt::tris_mono_kernel<false, false>);
+    kernel<<<grid, rays, shared, (cudaStream_t)stream>>>(t, order, f, out,
+                                                         idx);
     return (int)cudaGetLastError();
 }
 

@@ -62,7 +62,6 @@
 
 namespace rt {
 
-constexpr int TRACE_BLOCK = 128;
 // lanes a ray of the bounded bounce kernel (trace_bounce's LANES)
 constexpr int TRACE_LANES = 2;
 
@@ -71,9 +70,6 @@ constexpr int TRACE_LANES = 2;
 // tile threads; else one lane a ray, any tile the wrappers allow.
 __host__ __device__ constexpr int bounce_lanes(bool bounded) {
     return bounded ? TRACE_LANES : 1;
-}
-constexpr int max_threads(bool bounded, int lanes) {
-    return bounded ? lanes * TRACE_BLOCK : 1024;
 }
 
 // grid (Wp/tw, Hp/th, F), block th*tw.  Outputs are (F*Hp, Wp) planes in

@@ -40,7 +40,7 @@ from rt_torch.kernels import tracer_common as tc
 from rt_torch.kernels.tris_kernel import (TraceFlags, _cam_array,
                                           _check_block, _check_tile, _fmax,
                                           _fmin, _morton_order, _require,
-                                          chunk_order, primary_rays)
+                                          eye_order, primary_rays)
 
 SPH_COLS = 8      # centre(3), radius, albedo(3), material parameter
 CHUNK = 32        # spheres per chunk
@@ -335,10 +335,8 @@ def eye_chunk_order(packed: PackedSpheres, cam_row) -> torch.Tensor:
     """Front-to-back chunk visit order from the camera eye, (n_chunks,)
     int32.  Order never changes the closest hit, only how early far chunks
     are rejected."""
-    dev = packed.tab.device
-    eye = torch.from_numpy(np.asarray(cam_row, np.float32)[0, 0:3].copy())
     centroid = (packed.chunks[:, 0:3] + packed.chunks[:, 3:6]) * 0.5
-    return chunk_order(centroid, eye.to(dev))
+    return eye_order(centroid, cam_row)
 
 
 # ---------------------------------------------------------------------------
@@ -452,6 +450,9 @@ def render_color_spheres_chunked(packed: PackedSpheres, cam_row, time: int, *,
     _require(packed.tab, "tab", torch.float32, (n_pad, SPH_COLS))
     _require(packed.kinds, "kinds", torch.int32, (n_pad,))
     _require(packed.chunks, "chunks", torch.float32, (n_pad // CHUNK, 6))
+    if packed.tab.data_ptr() % 16:
+        raise ValueError("tab: the kernel stages rows with 16-byte loads; "
+                         "need a 16-byte aligned table")
     order = eye_chunk_order(packed, cam_row)
     cam = _cam_array(cam_row)
     dev = packed.tab.device

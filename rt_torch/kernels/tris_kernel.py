@@ -621,12 +621,22 @@ def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
 # the whole-frame path: one launch traces a frame (K7) or records it (K9)
 # ---------------------------------------------------------------------------
 
+def eye_order(centroid, cam_row) -> torch.Tensor:
+    """``chunk_order(centroid, eye)`` for the camera row's eye, with the eye
+    as three f32 scalars: the same distances and order, and no copy to the
+    card, which would wait for the stream (a wrapper that calls this stays
+    asynchronous)."""
+    eye = np.asarray(cam_row, np.float32)[0, 0:3]
+    diff = [centroid[:, c] - float(eye[c]) for c in range(3)]
+    dist = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
+    return torch.argsort(dist, stable=True).to(torch.int32)
+
+
 def eye_chunk_order(packed: PackedScene, cam_row) -> torch.Tensor:
     """Front-to-back chunk visit order from the camera eye, (n_chunks,)
     int32 on the tables' device: the order of bounce 0 in the wave paths
     and of every bounce in the whole-frame kernels."""
-    eye = torch.from_numpy(np.asarray(cam_row, np.float32)[0, 0:3].copy())
-    return chunk_order(packed.centroid, eye.to(packed.tab.device))
+    return eye_order(packed.centroid, cam_row)
 
 
 def _mono_plain(packed: PackedScene, cam_row, time: int, row0: int,

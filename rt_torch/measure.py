@@ -7,12 +7,16 @@
     python -m rt_torch.measure lookup [FIT]       # row lookups, forward+backward
     python -m rt_torch.measure record [FIT]       # one record, mono vs wave
     python -m rt_torch.measure oracle [PATH]      # ms per frame, oracle
-    python -m rt_torch.measure kernels            # ms per launch, K2 K3 K7 K9 K10
+    python -m rt_torch.measure kernels [GROUP]    # ms per launch, K2-K10b
+    python -m rt_torch.measure occupancy [PATH]   # live rays, tiles, warps
 
-PATH names one of the port's render paths (``PATHS`` below, the table
-``chip_smoke.py`` drives too; default ``suzanne``: Suzanne 512x512, 8
-bounces, 1 sample per pixel per frame), FIT one of its training paths
-(``FITS``; default ``suzanne_1080p``).  All run on ``cuda:0`` and fail
+GROUP is ``wave`` (K2, K3, K10a, K10b), ``frame`` (the whole-frame kernels
+K5-K9), ``depth`` (K6 and K7 cut to fewer bounces) or ``all`` (the
+default: wave and frame).  PATH names one of the port's render paths
+(``PATHS`` below, the table ``chip_smoke.py`` drives too; default
+``suzanne``: Suzanne 512x512, 8 bounces, 1 sample per pixel per frame;
+``occupancy``: ``sphere_cover``), FIT one of its training paths (``FITS``;
+default ``suzanne_1080p``).  All run on ``cuda:0`` and fail
 without a card.  Every line carries the card's name and power limit as
 ``nvidia-smi`` reports them.
 
@@ -43,7 +47,7 @@ from rt_torch.core.sphere import SphereArray
 from rt_torch.grad import replay
 from rt_torch.grad.params import SphereParams, TriangleParams
 from rt_torch.grad.train import fit_replay
-from rt_torch.kernels import dispatch, tris_kernel
+from rt_torch.kernels import _build, dispatch, sphere_kernel, tris_kernel
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes
 
@@ -466,7 +470,8 @@ def _wave_ms(make_scene, size: int, bounces_fused, reps: int) -> dict:
 
 def _mono_ms(width: int, height: int, bounces: int, record_: bool,
              reps: int) -> float:
-    """K7 (K9 with ``record_``) on Suzanne at the default tile."""
+    """K7 (K9 with ``record_``) on Suzanne at the default tile: the
+    profiler's device time."""
     sd = scenes.scene_suzanne(width, height, device="cuda")
     packed = dispatch.pack_scene(sd.scene)
     th, tw = dispatch.DEFAULT_TILE
@@ -476,7 +481,8 @@ def _mono_ms(width: int, height: int, bounces: int, record_: bool,
     fn = (tris_kernel.render_color_tris_record if record_
           else tris_kernel.render_color_tris)
     cam_row = dispatch.pack_camera(sd.camera)
-    return _event_ms(lambda: fn(packed, cam_row, 1000, **kw), reps)
+    return _profiled_ms(lambda: fn(packed, cam_row, 1000, **kw), reps,
+                        "tris_mono_kernel")
 
 
 def record_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
@@ -517,29 +523,195 @@ def _record_wave_ms(size: int, reps: int) -> dict:
             "K10b": _bounce_ms(st, 1, reps, track_idx=True)}
 
 
-def kernels(reps: int = 20):
-    """ms per launch of the kernels on trace_bounce, by CUDA events over
-    ``reps`` launches after one, at ``chip_smoke.py``'s shapes: K2 and K3
-    (2 and 1 fused bounces) on Suzanne 128x128 and 512x512, K3 (2 bounces)
-    on K4's primary rays, K2 and K3 (1 bounce) on dragon 512x512; K7 on
-    Suzanne 512x512 b8, K9 on Suzanne 1920x1080 b5; K10a and K10b on lucy
-    512x512."""
+def _profiled_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device ms of one launch of the kernel whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of fn after one:
+    the kernel alone, without the wrapper's work on the host or the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [ev for ev in prof.key_averages() if kernel in ev.key]
+    count = sum(ev.count for ev in hits)
+    if count != reps:
+        raise SystemExit(f"profiler saw {count} launches of {kernel}, "
+                         f"expected {reps}")
+    return sum(ev.self_device_time_total for ev in hits) / count / 1e3
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Mean device ms of one fn() from a CUDA graph of ``reps`` calls,
+    replayed three times after one (``chip_smoke.py`` reads the kernels of
+    some tens of microseconds so: the launches run back to back)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return _event_ms(graph.replay, 3) / reps
+
+
+def _sphere_ms(path: str, reps: int, bounces: int | None = None) -> float:
+    """K5 (a CUDA graph), K6 (the profiler's device time) or, with path
+    ``"record"``, K8 (a graph) on the named sphere path's frame at the
+    default tile."""
+    record_ = path == "record"
+    p = PATHS["sphere_simple" if record_ else path]
+    sd = scenes.build_scene(p.scene_id, p.width, p.height, device="cuda")
+    cfg = dataclasses.replace(sd.config, **p.overrides)
+    if bounces:
+        cfg = dataclasses.replace(cfg, bounces=bounces)
+    packed = dispatch.pack_scene(sd.scene, cfg)
+    th, tw = dispatch.DEFAULT_TILE
+    kw = dict(height=p.height, width=p.width, height_pad=p.height,
+              width_pad=p.width, bounces=cfg.bounces, th=th, tw=tw,
+              normalize_defocus_dir=cfg.normalize_defocus_dir,
+              flags=dispatch.trace_flags(cfg))
+    cam_row = dispatch.pack_camera(sd.camera)
+    if record_:
+        return _graph_ms(lambda: sphere_kernel.render_color_spheres_record(
+            packed.tab, packed.kinds, cam_row, 1000, n_spheres=packed.n,
+            **kw), reps)
+    if packed.chunks is None:
+        return _graph_ms(lambda: sphere_kernel.render_color_spheres(
+            packed.tab, packed.kinds, cam_row, 1000, n_spheres=packed.n,
+            **kw), reps)
+    return _profiled_ms(lambda: sphere_kernel.render_color_spheres_chunked(
+        packed, cam_row, 1000, **kw), reps, "spheres_chunked_kernel")
+
+
+KERNEL_GROUPS = ("all", "wave", "frame", "depth")
+
+
+def kernels(group: str = "all", reps: int = 20):
+    """ms per launch of the hand-written render and record kernels over
+    ``reps`` launches after one, at ``chip_smoke.py``'s shapes: by CUDA
+    events around the wrappers (K2, K3, K10a, K10b), from a CUDA graph of 50
+    (K5, K8), or the profiler's device time of the kernel (K6, K7, K9: an
+    older wrapper of theirs waits on a copy to the card).  ``wave``: K2 and
+    K3 (2 and 1 fused bounces) on Suzanne 128x128 and 512x512, K3 (2
+    bounces) on K4's primary rays, K2 and K3 (1 bounce) on dragon 512x512,
+    K10a and K10b on lucy 512x512.  ``frame``: K5 and K8 on sphere_simple
+    512x512 b10, K6 on cover 1280x720 b10, K7 on Suzanne 512x512 b8, K9 on
+    Suzanne 1920x1080 b5.  Also each kernel's registers and shared memory
+    from the build."""
     card = _card()
     ms = {}
-    for name, make, size, fused in (
-            ("suzanne 128", scenes.scene_suzanne, 128, (2, 1)),
-            ("suzanne 512", scenes.scene_suzanne, 512, (2, 1)),
-            ("dragon 512", scenes.scene_dragon, 512, (1,))):
-        for k, v in _wave_ms(make, size, fused, reps).items():
-            ms[f"{k} {name}"] = v
-    ms["K3 b2 suzanne 512 from K4"] = _bounce_ms(raygen_state(512), 2, reps)
-    ms["K7 suzanne 512 b8"] = _mono_ms(512, 512, 8, False, reps)
-    ms["K9 suzanne 1920x1080 b5"] = _mono_ms(1920, 1080, 5, True,
-                                             max(2, reps // 4))
-    for k, v in _record_wave_ms(512, reps).items():
-        ms[f"{k} lucy 512"] = v
-    print(json.dumps({"measure": "kernels", "card": card, "reps": reps,
-                      "ms_per_launch": ms}), flush=True)
+    if group in ("all", "wave"):
+        for name, make, size, fused in (
+                ("suzanne 128", scenes.scene_suzanne, 128, (2, 1)),
+                ("suzanne 512", scenes.scene_suzanne, 512, (2, 1)),
+                ("dragon 512", scenes.scene_dragon, 512, (1,))):
+            for k, v in _wave_ms(make, size, fused, reps).items():
+                ms[f"{k} {name}"] = v
+        ms["K3 b2 suzanne 512 from K4"] = _bounce_ms(raygen_state(512), 2,
+                                                     reps)
+        for k, v in _record_wave_ms(512, reps).items():
+            ms[f"{k} lucy 512"] = v
+    if group == "depth":
+        # the marginal cost of a bounce: K6 and K7 cut to fewer bounces
+        for b in (1, 2, 4, 10):
+            ms[f"K6 cover 1280x720 b{b}"] = _sphere_ms("sphere_cover", reps,
+                                                       bounces=b)
+        for b in (1, 2, 4, 8):
+            ms[f"K7 suzanne 512 b{b}"] = _mono_ms(512, 512, b, False, reps)
+    if group in ("all", "frame"):
+        ms["K5 sphere_simple 512 b10"] = _sphere_ms("sphere_simple", 50)
+        ms["K8 sphere_simple 512 b10"] = _sphere_ms("record", 50)
+        ms["K6 cover 1280x720 b10"] = _sphere_ms("sphere_cover", reps)
+        ms["K7 suzanne 512 b8"] = _mono_ms(512, 512, 8, False, reps)
+        ms["K9 suzanne 1920x1080 b5"] = _mono_ms(1920, 1080, 5, True,
+                                                 max(2, reps // 4))
+    lib = _build.load()
+    print(json.dumps({
+        "measure": "kernels", "card": card, "group": group, "reps": reps,
+        "ms_per_launch": ms,
+        "ptxas": _build.ptxas_usage(lib.build_log)}), flush=True)
+
+
+def _occupancy_counts(active, scans: int) -> dict:
+    """Lane occupancy of one bounce from the carry's ``active`` plane
+    (n_tiles, th*tw) in tile order: what a kernel with one thread a ray and
+    32 rays a warp holds, and what it would hold with each tile's live rays
+    packed into its first warps; ``scans`` pairs of this bounce."""
+    alive = active > 0
+    n_tiles, tile = alive.shape
+    live = alive.sum(dim=1)
+    warps = alive.reshape(n_tiles, tile // 32, 32).any(dim=2).sum()
+    packed = ((live + 31) // 32).sum()
+    n = alive.numel()
+    return {"live_rays": int(live.sum()) / n,
+            "tiles_with_live": int((live > 0).sum()) / n_tiles,
+            "warps_with_live": int(warps) / (n // 32),
+            "packed_warps": int(packed) / (n // 32),
+            "lanes_per_live_warp": int(live.sum()) / max(1, int(warps)),
+            "pairs_per_pixel": scans / n}
+
+
+def occupancy(path: str = "sphere_cover", device="cuda"):
+    """Per bounce of one frame of the named path (its whole-frame kernel's
+    plain version, at the path's size and the default tile): the share of
+    rays alive, of tiles with a live ray and of warps with a live lane,
+    the warps the live rays would fill packed, and the (ray, primitive)
+    pairs a pixel; then the pairs weighted by one over the lane occupancy,
+    as the warps issue them with a thread a ray, unpacked and packed,
+    against the pairs."""
+    p = PATHS[path]
+    which = set(p.launches)
+    if which not in ({"spheres_chunked"}, {"tris_mono"}):
+        raise SystemExit(f"occupancy: {path} runs no whole-frame tile kernel "
+                         "(sphere_cover, suzanne_mono)")
+    card = _card()
+    r = renderer(path, device=device)
+    cfg = r.config
+    th, tw = dispatch.DEFAULT_TILE
+    geometry = dispatch.frame_geometry(dataclasses.replace(
+        cfg, tile=(th, tw)))
+    kw = dict(bounces=cfg.bounces, spp=1, flags=dispatch.trace_flags(cfg),
+              normalize_defocus_dir=cfg.normalize_defocus_dir,
+              sky_from_final_dir=cfg.sky_from_final_dir, **geometry)
+    cam_row = dispatch.pack_camera(r.scene_def.camera)
+    packed = dispatch.pack_scene(r.scene_def.scene, cfg)
+    module, name = ((sphere_kernel, "sphere_bounce_chunked")
+                    if which == {"spheres_chunked"}
+                    else (tris_kernel, "trace_bounce"))
+    per_pair = 1 if module is sphere_kernel else tris_kernel.CHUNK
+    bounce = getattr(module, name)
+    rows = []
+
+    def counted(packed_, order, carry, flags, **kw_):
+        kw_.pop("scan_counts", None)
+        counts = []
+        out = bounce(packed_, order, carry, flags, scan_counts=counts, **kw_)
+        rows.append(_occupancy_counts(carry[4], counts[0][0] * per_pair))
+        return out
+
+    setattr(module, name, counted)
+    try:
+        if module is sphere_kernel:
+            sphere_kernel.render_color_spheres_chunked_plain(
+                packed, cam_row, 1000, **kw)
+        else:
+            tris_kernel.render_color_tris_plain(packed, cam_row, 1000, **kw)
+    finally:
+        setattr(module, name, bounce)
+    pairs = sum(b["pairs_per_pixel"] for b in rows)
+    unpacked = sum(b["pairs_per_pixel"] * b["warps_with_live"]
+                   / b["live_rays"] for b in rows if b["live_rays"])
+    packed_ = sum(b["pairs_per_pixel"] * b["packed_warps"] / b["live_rays"]
+                  for b in rows if b["live_rays"])
+    print(json.dumps({
+        "measure": "occupancy", "path": path, "card": card,
+        "size": [cfg.width, cfg.height], "tile": [th, tw],
+        "bounces": rows, "pairs_per_pixel": pairs,
+        "issued_over_pairs_unpacked": unpacked / pairs,
+        "issued_over_pairs_packed": packed_ / pairs}), flush=True)
 
 
 _GROUPS = (
@@ -606,8 +778,9 @@ def main(argv=None) -> int:
         return 1
     what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
             "lookup": lookup, "record": record, "oracle": oracle,
-            "kernels": kernels}
-    names = FITS if argv[:1] in (["fit"], ["lookup"], ["record"]) else PATHS
+            "kernels": kernels, "occupancy": occupancy}
+    names = (FITS if argv[:1] in (["fit"], ["lookup"], ["record"])
+             else KERNEL_GROUPS if argv[:1] == ["kernels"] else PATHS)
     if (len(argv) not in (1, 2) or argv[0] not in what
             or (len(argv) == 2 and argv[1] not in names)):
         print(__doc__, file=sys.stderr)

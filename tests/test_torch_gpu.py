@@ -461,3 +461,138 @@ def test_cuda_trace_kernels_equal_plain_at_other_tiles_bitwise(
                               **kw)
     for a, b in zip((*ins[0], k), (*ins[1], p)):
         assert _bit_equal(a, b)
+
+
+def _frame_args(sd, width, height, bounces, tile, **more):
+    return dict(height=height, width=width, height_pad=height,
+                width_pad=width, bounces=bounces, th=tile[0], tw=tile[1],
+                normalize_defocus_dir=sd.config.normalize_defocus_dir,
+                flags=tdispatch.trace_flags(sd.config), **more)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 2])
+@pytest.mark.parametrize("tile", [(4, 8), (8, 16), (16, 16)])
+def test_cuda_packed_sphere_kernel_equals_plain_bitwise(tile, spp):
+    """K6 (live rays packed, votes batched, rows staged) on cover at
+    256x128, 8 bounces, where most live warps of a thread a ray are under a
+    quarter full after bounce 1 (``measure occupancy``); tiles of 32, 128
+    (the bounded instance) and 256 rays (the one bounded by 1024)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_sphere_cover(256, 128, device="cuda")
+    p = tdispatch.pack_scene(sd.scene, sd.config)
+    args = _frame_args(sd, 256, 128, 8, tile, spp=spp)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    before = tsk.LAUNCHES["spheres_chunked"]
+    k = tsk.render_color_spheres_chunked(p, cam_row, TIME, **args)
+    assert tsk.LAUNCHES["spheres_chunked"] == before + 1
+    assert _bit_equal(k, tsk.render_color_spheres_chunked_plain(
+        p, cam_row, TIME, **args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 2])
+@pytest.mark.parametrize("tile", [(4, 8), (8, 16), (16, 16)])
+def test_cuda_flat_sphere_kernels_equal_plain_at_every_tile_bitwise(tile,
+                                                                    spp):
+    """K5 (and at one sample K8, color and index planes) through the
+    early-exit pair test, on the complex scene (all three materials)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.test_scene_complex(128, 96, device="cuda")
+    p = tdispatch.pack_scene(sd.scene, sd.config)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = _frame_args(sd, 128, 96, sd.config.bounces, tile, n_spheres=p.n)
+    k = tsk.render_color_spheres(p.tab, p.kinds, cam_row, TIME, spp=spp,
+                                 **args)
+    args.pop("th"), args.pop("tw")
+    assert _bit_equal(k, tsk.render_color_spheres_plain(
+        p.tab, p.kinds, cam_row, TIME, spp=spp, **args))
+    if spp == 1:
+        color, idx = tsk.render_color_spheres_record(
+            p.tab, p.kinds, cam_row, TIME, th=tile[0], tw=tile[1], **args)
+        p_color, p_idx = tsk.render_color_spheres_record_plain(
+            p.tab, p.kinds, cam_row, TIME, **args)
+        assert _bit_equal(color, p_color) and torch.equal(idx, p_idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 2])
+@pytest.mark.parametrize("tile", [(4, 8), (8, 16), (16, 16)])
+def test_cuda_packed_mono_kernels_equal_plain_bitwise(tile, spp):
+    """K7 (and at one sample K9, color and index planes) with live rays
+    packed, on cube at 128x128, 8 bounces: from bounce 2 on its live warps
+    hold 8, 5, 4, 3, 2 and 2 lanes of 32 on average (``measure occupancy``
+    on the plain version), so most scans run at more than one lane a ray."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_cube(128, 128, device="cuda")
+    packed = tdispatch.pack_scene(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = _frame_args(sd, 128, 128, 8, tile)
+    before = ttk.LAUNCHES["tris_mono"]
+    k = ttk.render_color_tris(packed, cam_row, TIME, spp=spp, **args)
+    assert ttk.LAUNCHES["tris_mono"] == before + 1
+    assert _bit_equal(k, ttk.render_color_tris_plain(packed, cam_row, TIME,
+                                                     spp=spp, **args))
+    if spp == 1:
+        color, idx, _ = ttk.render_color_tris_record(packed, cam_row, TIME,
+                                                     **args)
+        p_color, p_idx, _ = ttk.render_color_tris_record_plain(
+            packed, cam_row, TIME, **args)
+        assert _bit_equal(color, p_color) and torch.equal(idx, p_idx)
+        assert _bit_equal(color, k)
+
+
+@pytest.mark.gpu
+def test_cuda_tris_recorder_with_padding_pixels_equals_plain_bitwise():
+    """K9 on Suzanne at 120x72, padded as the dispatch pads it to the
+    default tile (128x72: the last tile column is half padding pixels,
+    traced like any other)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_suzanne(120, 72, device="cuda")
+    geometry = tdispatch.frame_geometry(sd.config)
+    assert (geometry["width_pad"], geometry["height_pad"]) == (128, 72)
+    packed = tdispatch.pack_scene(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = dict(bounces=5, normalize_defocus_dir=True,
+                flags=tdispatch.trace_flags(sd.config), **geometry)
+    color, idx, _ = ttk.render_color_tris_record(packed, cam_row, TIME,
+                                                 **args)
+    p_color, p_idx, _ = ttk.render_color_tris_record_plain(packed, cam_row,
+                                                           TIME, **args)
+    assert _bit_equal(color, p_color) and torch.equal(idx, p_idx)
+    assert int((idx[:, :, 120:] >= 0).sum()) > 0      # padding pixels hit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["spheres_chunked", "tris_mono"])
+def test_cuda_packed_kernels_equal_plain_across_samples_bitwise(kernel):
+    """K6 (cover 256x128) and K7 (cube 128x128) at 8 bounces and 4 samples,
+    launched 8 times.  A tile whose rays all escape leaves its bounce loop
+    and starts the next sample, whose live-ray count rewrites the block's
+    shared words: a barrier on that exit keeps a fast warp from rewriting a
+    word a slow warp still reads.  Every launch equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if kernel == "spheres_chunked":
+        sd = tscenes.scene_sphere_cover(256, 128, device="cuda")
+        p = tdispatch.pack_scene(sd.scene, sd.config)
+        run, plain = (tsk.render_color_spheres_chunked,
+                      tsk.render_color_spheres_chunked_plain)
+        launches = tsk.LAUNCHES
+        args = _frame_args(sd, 256, 128, 8, (8, 16), spp=4)
+    else:
+        sd = tscenes.scene_cube(128, 128, device="cuda")
+        p = tdispatch.pack_scene(sd.scene)
+        run, plain = ttk.render_color_tris, ttk.render_color_tris_plain
+        launches = ttk.LAUNCHES
+        args = _frame_args(sd, 128, 128, 8, (8, 16), spp=4)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    want = plain(p, cam_row, TIME, **args)
+    before = launches[kernel]
+    for _ in range(8):
+        assert _bit_equal(run(p, cam_row, TIME, **args), want)
+    assert launches[kernel] == before + 8
