@@ -30,7 +30,8 @@ its training paths (``rt_torch.measure.FITS``) through ``fit_replay``:
   re-record (spheres_record);
 - scenes 6 (lucy) and 7 (dragon) 512x512, 5 bounces, the mesh's material
   wrong, 20 steps with one re-record (the sorted-stream recorder:
-  wave_record once and wave_record_bounce 4 times a record);
+  wave_record once and wave_record_bounce 4 times a record, each on the
+  tiles that hold the stream's live rays);
 
 checks the goldens of ``tests/golden_tris`` and ``tests/golden``
 (``rt_torch.goldens``), Suzanne through the whole-frame path too, and
@@ -39,6 +40,10 @@ once, the ``tests/golden_tris`` images, and one frame each of scene 1 and
 Suzanne timed.  Every phase prints one JSON line; any failure raises, so the
 exit code is non-zero and no result line is printed.  Needs no network and
 starts no process that outlives it.
+
+The recorder's kernels are held at every launch of a whole record: lucy at
+512x512 (wave_record_bounce's entry in the last line is the mean of its
+four launches there) and dragon at 128x128.
 
 Tolerance of kernel against plain version: none.  The kernels are compiled
 with -fmad=false and use IEEE division and square root, so every output
@@ -66,36 +71,15 @@ if not torch.cuda.is_available():
 import numpy as np  # noqa: E402
 
 from rt_torch import cli, goldens, measure  # noqa: E402
+from rt_torch.measure import (  # noqa: E402
+    FLOPS_PER_PAIR, FLOPS_PER_RAYGEN, FLOPS_PER_SPHERE_PAIR,
+    FLOPS_PER_WOOP_PAIR, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_F32_FLOPS,
+    bound)
 from rt_torch.kernels import (_build, dispatch, sphere_kernel,  # noqa: E402
                               tris_kernel)
 from rt_torch.scene import scenes  # noqa: E402
 
 DEV = torch.device("cuda", 0)
-
-# published peaks of one H100 SXM (NVIDIA data sheet): the bound is stated
-# against these whatever the card's power limit, which is printed beside it
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# f32 operations of the scan, from the source: Moeller-Trumbore per (ray,
-# triangle) = 2 cross (9 each) + 4 dot (5 each) + 1 divide + 3 subtract
-# + 3 multiply + 1 add; box test per (ray, chunk) = 6 subtract + 6 multiply
-# + 12 min/max
-FLOPS_PER_PAIR = 46
-FLOPS_PER_BOX = 24
-# ray-sphere pair (spheres.cu scan_sphere): 3 subtract + 2 dot (5 each)
-# + 2*dot + r*r + subtract + b*b + 4a*cc + subtract + sqrt + negate
-# + subtract + divide
-FLOPS_PER_SPHERE_PAIR = 23
-# one primary ray (rt_device.cuh generate_ray): 5 RNG floats (convert and
-# divide), 2 two-vector and 2 four-vector normalisations, uv, make_ray,
-# defocus
-FLOPS_PER_RAYGEN = 102
-
-# the epilogue of the probe's Woop intersection per (ray, triangle)
-# (probes.cu woop_mma_kernel): reciprocal, negate, 3 multiply, 2 add, u + v,
-# 5 compare, select, min
-FLOPS_PER_WOOP_PAIR = 15
-PEAK_BF16_FLOPS = 989e12     # dense, tensor cores
 
 KERNEL_SIZE = 512     # the triangle paths' image is 512 x 512
 
@@ -160,19 +144,6 @@ def _diff(kernel_out, plain_out):
     return max_abs, float(differs.float().mean())
 
 
-def _bound(counts, nbytes, per_pair=tris_kernel.CHUNK * FLOPS_PER_PAIR,
-           extra_flops=0):
-    """(bound ms, what bounds it, operations) from the plain version's
-    counts of this run's data: [pairs or chunk scans, box tests, ...] per
-    bounce."""
-    flops = extra_flops + sum(s * per_pair + b * FLOPS_PER_BOX
-                              for s, b, *_ in counts)
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops)
-
-
 def _timed_graph(fn, reps):
     """Mean device milliseconds of one fn(), with ``reps`` of them captured
     into one CUDA graph and the graph replayed: the launches run back to
@@ -227,15 +198,16 @@ def _compare_bounce(case, size, packed, flags, th, tw, pay0, state0, active0,
         table_bytes = sum(t.numel() * 4 for t in
                           (packed.tab, packed.mats, packed.chunks))
         nbytes = table_bytes + tile_order.numel() * 4 + (11 + 12) * n * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(counts,
-                                                                nbytes)
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(counts,
+                                                               nbytes)
     return rec
 
 
 def _counts_record(counts):
     """The plain version's per-bounce counts under their names."""
     names = ("ray_chunk_scans", "box_tests", "tile_chunk_visits",
-             "candidates", "tile_chunk_scans", "heaviest_tile_scans")
+             "candidates", "tile_chunk_scans", "heaviest_tile_scans",
+             "box_tests_every_chunk")
     return {"counts": [dict(zip(names, c)) for c in counts]}
 
 
@@ -265,8 +237,8 @@ def compare_wave(make_scene, size: int, bounces_fused, reps: int = 0):
         table_bytes = sum(t.numel() * 4 for t in
                           (packed.tab, packed.mats, packed.chunks))
         nbytes = table_bytes + st.order.numel() * 4 + 13 * n * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(counts,
-                                                                nbytes)
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(counts,
+                                                               nbytes)
     records = [rec]
 
     # ---- K3 on the sorted stream after bounce 0 ----
@@ -335,7 +307,7 @@ def compare_raygen(size: int, reps: int):
     # and the wrapper's cost on the host beside it
     rec["ms"] = _timed_graph(run, reps)
     rec["wrapper_ms"] = _timed(lambda i: run(), reps)
-    rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+    rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
         [], 20 * 4 + 4 + 8 * n * 4, extra_flops=n * FLOPS_PER_RAYGEN)
     return rec
 
@@ -394,7 +366,7 @@ def compare_spheres(make_scene, width: int, height: int, spp: int,
         rec["ms"] = (_timed_graph(run, reps) if packed.chunks is None
                      else rec["wrapper_ms"])
         per_ray = width * height * FLOPS_PER_RAYGEN
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
             counts, nbytes, per_pair=FLOPS_PER_SPHERE_PAIR,
             extra_flops=per_ray)
     return rec
@@ -439,7 +411,7 @@ def compare_mono(size: int, bounces: int, spp: int, reps: int):
         nbytes = sum(t.numel() * 4 for t in (packed.tab, packed.mats,
                                              packed.chunks)) \
             + packed.n_chunks * 4 + 20 * 4 + 3 * n * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
             counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
     return rec
 
@@ -476,7 +448,7 @@ def compare_tris_record(width: int, height: int, bounces: int, reps: int):
         nbytes = sum(t.numel() * 4 for t in (packed.tab, packed.mats,
                                              packed.chunks)) \
             + packed.n_chunks * 4 + 20 * 4 + (3 + bounces) * n * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
             counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
     return rec
 
@@ -523,7 +495,7 @@ def compare_spheres_record(make_scene, width: int, height: int, reps: int):
         npix = width * height
         nbytes = (tab.numel() + kinds.numel()) * 4 + 20 * 4 \
             + (3 + cfg.bounces) * npix * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
             counts, nbytes, per_pair=FLOPS_PER_SPHERE_PAIR,
             extra_flops=npix * FLOPS_PER_RAYGEN)
     return rec
@@ -550,71 +522,116 @@ def phase_kernels_train():
     return records
 
 
-def compare_wave_record(make_scene, size: int, reps: int):
-    """K10a, then K10b on the morton-sorted stream after bounce 0, against
-    their plain versions (payload, state, active, winning chunk and the
-    index plane) on one frame of ``make_scene`` at size x size, over the
-    tables the recorder packs (no split_big; ``measure.record_state``).
-    With reps > 0 also times them."""
-    st = measure.record_state(make_scene, size, DEV)
-    packed, flags, th, tw = st.packed, st.flags, st.th, st.tw
-    case = f"{st.sd.name} recorder tables"
+def compare_record_launches(make_scene, size: int, reps: int):
+    """K10a and every K10b launch of one whole record (``tris_kernel.
+    render_color_tris_wave_record`` on one frame of ``make_scene`` at size
+    x size, its bounces, over the tables the recorder packs: no
+    split_big), each against its plain version on the same inputs:
+    payload, state, active, winning chunk and index planes.  The plain
+    version runs on copies of each launch's inputs just before the
+    record's own launch.  With reps > 0 also times each kernel (the
+    profiler's device time, on fresh copies).  Returns one record per
+    launch."""
+    sd = make_scene(size, size, device=DEV)
+    th, tw = dispatch.DEFAULT_TILE
+    flags = dispatch.trace_flags(sd.config)
+    packed = tris_kernel.pack_tri_table(sd.scene)
+    cam_row = dispatch.pack_camera(sd.camera)
+    case = f"{sd.name} recorder tables"
     n = size * size
     table_bytes = sum(t.numel() * 4 for t in
-                      (packed.tab, packed.mats, packed.chunks))
+                      (packed.tab, packed.mats, packed.chunks, packed.groups)
+                      if t is not None)
+    wave_first, wave_bounce = tris_kernel.wave_first, tris_kernel.wave_bounce
+    records = []
 
-    # ---- K10a ----
-    k_out = st.first
-    counts = []
-    p_out, plain_ms = _plain_timed(lambda: tris_kernel.wave_first_plain(
-        packed, st.order, st.cam_row, st.times, 0, flags, scan_counts=counts,
-        **st.first_kw))
-    rec = _wave_record("wave_record", 1211, case, size, th, tw, k_out, p_out,
-                       plain_ms, n_chunks=packed.n_chunks,
-                       **_counts_record(counts),
-                       index_entries_differ=float(
-                           (k_out[4] != p_out[4]).float().mean()))
-    if reps:
-        rec["ms"] = _timed(lambda i: tris_kernel.wave_first(
-            packed, st.order, st.cam_row, st.times, 0, flags, **st.first_kw),
-            reps)
-        # payf 10, state, active, winning chunk, index: 14 words a ray
-        nbytes = table_bytes + st.order.numel() * 4 + 14 * n * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(
-            counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
-    records = [rec]
+    def first(packed_, order, cam_row_, times, row0, flags_, **kw):
+        counts = []
+        p_out, plain_ms = _plain_timed(lambda: tris_kernel.wave_first_plain(
+            packed_, order, cam_row_, times, row0, flags_,
+            scan_counts=counts, **kw))
+        k_out = wave_first(packed_, order, cam_row_, times, row0, flags_,
+                           **kw)
+        rec = _wave_record(
+            "wave_record", 1211, f"{case}, bounce 0", size, th, tw, k_out,
+            p_out, plain_ms, bounce=0, n_chunks=packed_.n_chunks,
+            **_counts_record(counts), index_entries_differ=float(
+                (k_out[4] != p_out[4]).float().mean()))
+        if reps:
+            rec["ms"] = measure._profiled_ms(lambda: wave_first(
+                packed_, order, cam_row_, times, row0, flags_, **kw), reps,
+                "wave_first_kernel")
+            # payf 10, state, active, winning chunk, index: 14 words a ray
+            nbytes = table_bytes + order.numel() * 4 + 14 * n * 4
+            rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
+                counts, nbytes, extra_flops=n * FLOPS_PER_RAYGEN)
+        records.append(rec)
+        return k_out
 
-    # ---- K10b on the sorted stream after bounce 0 ----
-    def fresh():
-        return st.pay0.clone(), st.state0.clone(), st.active0.clone()
+    def bounce(packed_, tile_order, pay, state, active, flags_, **kw):
+        ins = pay.clone(), state.clone(), active.clone()
+        counts = []
+        (pw, pidx), plain_ms = _plain_timed(
+            lambda: tris_kernel.wave_bounce_plain(
+                packed_, tile_order, *ins, flags_, scan_counts=counts, **kw))
+        if reps:
+            bufs = []
 
-    kp, ks, ka = fresh()
-    kw_, kidx = tris_kernel.wave_bounce(packed, st.tile_order, kp, ks, ka,
-                                        flags, n_bounces=1, th=th, tw=tw,
-                                        track_idx=True)
-    pp, ps, pa = fresh()
-    counts = []
-    (pw, pidx), plain_ms = _plain_timed(lambda: tris_kernel.wave_bounce_plain(
-        packed, st.tile_order, pp, ps, pa, flags, n_bounces=1, th=th, tw=tw,
-        track_idx=True, scan_counts=counts))
-    rec = _wave_record("wave_record_bounce", 1277,
-                       f"{case}, morton-sorted stream after bounce 0", size,
-                       th, tw, (kp, ks, ka, kw_, kidx), (pp, ps, pa, pw, pidx),
-                       plain_ms, n_bounces=1, n_chunks=packed.n_chunks,
-                       **_counts_record(counts),
-                       index_entries_differ=float(
-                           (kidx != pidx).float().mean()))
-    if reps:
-        bufs = [fresh() for _ in range(reps)]
-        rec["ms"] = _timed(lambda i: tris_kernel.wave_bounce(
-            packed, st.tile_order, *bufs[i], flags, n_bounces=1, th=th,
-            tw=tw, track_idx=True), reps)
-        # reads pay 9, state, active; writes those, winning chunk, index
-        nbytes = table_bytes + st.tile_order.numel() * 4 + (11 + 13) * n * 4
-        rec["bound_ms"], rec["bound_by"], rec["flops"] = _bound(counts,
-                                                                nbytes)
-    records.append(rec)
+            def fresh():     # the kernel updates its inputs in place
+                bufs[:] = [(pay.clone(), state.clone(), active.clone())
+                           for _ in range(reps)]
+
+            ms = measure._profiled_ms(lambda: wave_bounce(
+                packed_, tile_order, *bufs.pop(), flags_, **kw), reps,
+                "wave_bounce_kernel", prepare=fresh)
+        kw_, kidx = wave_bounce(packed_, tile_order, pay, state, active,
+                                flags_, **kw)
+        launched = kw.get("live_tiles")
+        rec = _wave_record(
+            "wave_record_bounce", 1277,
+            f"{case}, morton-sorted stream before bounce {len(records)}",
+            size, th, tw, (pay, state, active, kw_, kidx),
+            (*ins, pw, pidx), plain_ms, bounce=len(records),
+            n_bounces=kw["n_bounces"], n_chunks=packed_.n_chunks,
+            tiles_launched=launched, **_counts_record(counts),
+            index_entries_differ=float((kidx != pidx).float().mean()))
+        if reps:
+            rec["ms"] = ms
+            rays = n if launched is None else launched * th * tw
+            # reads pay 9, state, active; writes those, winning chunk, index
+            nbytes = table_bytes + tile_order.numel() * 4 + 24 * rays * 4
+            rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(counts,
+                                                                   nbytes)
+        records.append(rec)
+        return kw_, kidx
+
+    tris_kernel.wave_first, tris_kernel.wave_bounce = first, bounce
+    try:
+        tris_kernel.render_color_tris_wave_record(
+            packed, cam_row, 1000, height=size, width=size, height_pad=size,
+            width_pad=size, bounces=sd.config.bounces, flags=flags, th=th,
+            tw=tw, normalize_defocus_dir=sd.config.normalize_defocus_dir,
+            sky_from_final_dir=sd.config.sky_from_final_dir)
+    finally:
+        tris_kernel.wave_first, tris_kernel.wave_bounce = wave_first, \
+            wave_bounce
     return records
+
+
+def _per_launch(records, name):
+    """One entry for a kernel launched several times a record: its
+    launches' mean ms, bound and plain time (the time a record spends in it
+    over the count of its launches)."""
+    rs = [r for r in records if r["name"] == name]
+    mean = {k: sum(r[k] for r in rs) / len(rs)
+            for k in ("ms", "bound_ms", "plain_ms")}
+    ops = sum(r["flops"] for r in rs)
+    return rs[0] | mean | dict(
+        case=f"{rs[0]['case'].split(',')[0]}: mean of the {len(rs)} "
+             "launches of one record", bound_by=max(
+                 rs, key=lambda r: r["bound_ms"])["bound_by"], flops=ops,
+        ms_by_bounce=[r["ms"] for r in rs],
+        bound_ms_by_bounce=[r["bound_ms"] for r in rs])
 
 
 def compare_record_color(make_scene, size: int):
@@ -642,24 +659,32 @@ def compare_record_color(make_scene, size: int):
 
 
 def phase_kernels_record():
-    """K10a and K10b against their plain versions on lucy at 512x512, the
-    fits' shape (limit bit-equal, index planes included), and the
-    recorder's color against the render path's on lucy and dragon."""
+    """K10a and each of the four K10b launches of a whole record against
+    their plain versions: lucy at 512x512 (the fits' shape, timed) and
+    dragon at 128x128 (limit bit-equal, index planes included); then the
+    recorder's color against the render path's on lucy and dragon at
+    512x512.  Returns the entries of the kernels line: K10a on lucy, and
+    K10b as the mean of lucy's four launches."""
     t0 = time.perf_counter()
-    records = compare_wave_record(scenes.scene_lucy, KERNEL_SIZE, reps=5)
+    lucy = compare_record_launches(scenes.scene_lucy, KERNEL_SIZE, reps=5)
+    dragon = compare_record_launches(scenes.scene_dragon, 128, reps=0)
     colors = [compare_record_color(make, KERNEL_SIZE)
               for make in (scenes.scene_lucy, scenes.scene_dragon)]
     say(phase="kernels", kernels=["wave_record", "wave_record_bounce"],
-        limit="bit-equal: max_abs_err 0, no ray and no index entry differs; "
-              "recorder color == render_color_tris_wave(sort_every=1, "
-              "morton) color", results=records, recorder_color=colors,
+        limit="bit-equal: max_abs_err 0, no ray and no index entry differs, "
+              "at every launch of a record; recorder color == "
+              "render_color_tris_wave(sort_every=1, morton) color",
+        results=lucy + dragon, recorder_color=colors,
         seconds=time.perf_counter() - t0)
-    _require_bit_equal(records)
+    _require_bit_equal(lucy + dragon)
     bad = [c for c in colors if c["color_pixels_differ"] != 0.0]
     if bad:
         raise SystemExit(f"the recorder's color differs from the render "
                          f"path's: {bad}")
-    return records
+    launches = [r["name"] for r in lucy + dragon]
+    if launches != (["wave_record"] + ["wave_record_bounce"] * 4) * 2:
+        raise SystemExit(f"a record launched {launches}")
+    return [lucy[0], _per_launch(lucy, "wave_record_bounce")] + dragon
 
 
 def phase_probes():
@@ -960,8 +985,8 @@ def main():
     records += phase_kernels_new()
     records += phase_kernels_train()
     # dragon, the large-scene branch: 1563 chunks, morton key, 1 bounce a
-    # launch.  The plain versions loop over every chunk and triangle in
-    # Python, about half a minute each at this size
+    # launch.  The plain versions loop over the chunks in Python, a chunk's
+    # 32 triangles at once on the card
     records += phase_kernels(scenes.scene_dragon, KERNEL_SIZE, (1,), reps=3)
     records += phase_kernels_record()
     records += probe_records

@@ -37,9 +37,9 @@ _INT = ctypes.c_int
 # C signatures of the launch functions, by source file
 _SIGNATURES = {
     "tris_wave": {
-        "rt_wave_first": ([_PTR] * 6 + [_INT] + [_PTR] * 5 + [_INT] * 14
+        "rt_wave_first": ([_PTR] * 7 + [_INT] + [_PTR] * 5 + [_INT] * 15
                           + [_PTR]),
-        "rt_wave_bounce": ([_PTR] * 9 + [ctypes.c_longlong] + [_INT] * 8
+        "rt_wave_bounce": ([_PTR] * 10 + [ctypes.c_longlong] + [_INT] * 10
                            + [_PTR]),
         "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 8
                            + [_PTR]),
@@ -91,13 +91,21 @@ def _compile(nvcc: str, source: str) -> tuple[str, str]:
     stem = os.path.splitext(os.path.basename(source))[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        return out, "cached"
+        # the compiler's log of the build, kept beside the library
+        try:
+            with open(out + ".log") as f:
+                return out, f.read()
+        except OSError:
+            return out, "cached"
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n"
                            f"{proc.stderr}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(proc.stderr)
+    os.replace(f"{tmp}.log", out + ".log")
     os.replace(tmp, out)
     return out, proc.stderr
 
@@ -131,19 +139,20 @@ def load() -> SimpleNamespace:
 
 
 def short_name(mangled: str) -> str:
-    """``rt::name<bool, ...>`` from the mangled name of a kernel of
-    namespace ``rt`` (its bool template arguments only); anything else
+    """``rt::name<bool or int, ...>`` from the mangled name of a kernel of
+    namespace ``rt`` (its bool and int template arguments); anything else
     unchanged."""
     m = re.match(r"_ZN2rt(\d+)", mangled)
     if not m:
         return mangled
     start = m.end()
     name = mangled[start:start + int(m.group(1))]
-    args = re.match(r"I((?:Lb[01]E)+)E", mangled[start + int(m.group(1)):])
+    args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[start + int(m.group(1)):])
     if args:
-        bools = re.findall(r"Lb([01])E", args.group(1))
-        name += "<" + ", ".join("true" if b == "1" else "false"
-                                for b in bools) + ">"
+        vals = re.findall(r"L([bi])(\d+)E", args.group(1))
+        name += "<" + ", ".join(
+            v if t == "i" else "true" if v == "1" else "false"
+            for t, v in vals) + ">"
     return name
 
 

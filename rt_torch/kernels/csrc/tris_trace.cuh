@@ -58,7 +58,26 @@
 //    16 entries, stays balanced).  After a bounce the work of a tile is
 //    uneven (dragon at 512x512: 49 chunk scans a live tile on average, 390
 //    in the heaviest), and a launch ends with the heaviest tiles' dependent
-//    chains.
+//    chains.  The wave kernels take 1, 2, 4 or 8 lanes; the recorder's
+//    bounce kernel runs only the tiles that hold live rays and takes the
+//    most lanes at which all of them run at once (tris_wave.cu).
+// 6. Group boxes (trace_bounce, tables of at least 4 groups).  Each run of
+//    GROUP consecutive table chunks has a box, the exact min/max of its
+//    chunks' boxes (tris_kernel.group_boxes); the table is Morton-clustered,
+//    so these are compact.  A ray tests the first MAX_GROUPS group boxes
+//    once a bounce and runs the slab test of a batch entry only where the
+//    entry's group was entered: a chunk's slab lies within its group's
+//    (RN(b - o) * id is monotone in b for a fixed ray), so a missed group
+//    clears no mask bit the chunk test would set.  An axis whose products
+//    hold a NaN (o on the plane of a face, a direction component of +-0) is
+//    widened to everything in the group test, since fminf/fmaxf drop the
+//    NaN (tests/test_torch_record_cull.py).  Entries of later groups take
+//    the chunk test as before.  At one lane a ray (the first kernel: 32
+//    entries a lane a batch) warp 0 writes each group's 32-bit word of the
+//    batch's entries and a ray tests only the entries of the words of its
+//    groups; at 2-8 lanes (4-16 entries a lane) the lane checks each
+//    entry's group bit.  On an H100 each form was the faster at its lanes
+//    (PERF.md).
 //
 // The whole-frame kernels trace pixel tiles for the whole frame, so their
 // dead rays stay where they are: from bounce 2 on most of their warps are
@@ -80,7 +99,8 @@
 //
 // The constants were timed on an H100 against the alternatives (PERF.md):
 // unroll 4 for triangles (1 and 2 slower, 8 the same), 2 lanes a ray in the
-// bounce kernel (4 lose to occupancy; the first kernel keeps 1),
+// bounce kernel on a full card (4 lose to occupancy; the first kernel keeps
+// 1),
 // fminf/fmaxf over the selects, no register bound (tris_wave.cu); for the
 // whole-frame kernels packing, one thread a ray, up to PACK_MAX_LANES lanes
 // where a tile's live count leaves the threads, and the two-phase sphere
@@ -111,6 +131,8 @@ constexpr int BATCH = 32;     // visit entries a box batch: a mask bit each
 // one ray read together
 constexpr int TRI_ROW = 20;
 constexpr int MAX_WARPS = 32;
+constexpr int GROUP = 32;       // chunks a group box (tris_kernel.GROUP)
+constexpr int MAX_GROUPS = 64;  // group boxes a ray tests: its mask's bits
 // the most lanes a packed ray of the whole-frame kernels gets
 constexpr int PACK_MAX_LANES = 4;
 // Tiles of at most TRACE_BLOCK rays (the default 8x16) take the BOUNDED
@@ -129,6 +151,13 @@ struct Tables {
     int n_chunks;
     int n_mats;
     ScatterFlags flags;
+};
+
+// The group boxes of a wave kernel's table: (n, 6) f32, min xyz, max xyz
+// of GROUP consecutive chunks; n = 0 (boxes null) tests chunks only.
+struct Groups {
+    const float* boxes;
+    int n;
 };
 
 // The cull loops' staging area (triangles 6.6 KB, spheres 1.8 KB).  Boxes,
@@ -179,6 +208,68 @@ __device__ __forceinline__ void stage_boxes(const float* __restrict__ chunks,
     }
 }
 
+// One axis of a group's slab test, widened to everything where a product
+// is NaN ((face - o) * +-inf for o on the face's plane; t0 + t1 is NaN then,
+// and also for the interval (-inf, +inf), which is everything already).
+__device__ __forceinline__ void wide_axis(float lo, float hi, float o,
+                                          float id, float& a, float& b) {
+    const float t0 = (lo - o) * id, t1 = (hi - o) * id;
+    const bool nan = isnan(t0 + t1);
+    a = nan ? -INFINITY : fminf(t0, t1);
+    b = nan ? INFINITY : fmaxf(t0, t1);
+}
+
+// Whether the ray may enter one of the chunk boxes inside group box `box`
+// (point 6): false only where every one of them has its mask bit clear.
+__device__ __forceinline__ bool group_entered(const float4* box, Vec3 o,
+                                              Vec3 id) {
+    const float4 lo = box[0], hi = box[1];
+    float ax, bx, ay, by, az, bz;
+    wide_axis(lo.x, lo.w, o.x, id.x, ax, bx);
+    wide_axis(lo.y, hi.x, o.y, id.y, ay, by);
+    wide_axis(lo.z, hi.y, o.z, id.z, az, bz);
+    const float tmin = fmaxf(fmaxf(ax, ay), az);
+    const float tmax = fminf(fminf(bx, by), bz);
+    return (tmin <= tmax) && (tmax >= 0.0f);
+}
+
+// trace_bounce's group staging: the first MAX_GROUPS group boxes, staged
+// once a call, and by batch slot (as CullShared's boxes) the entries of the
+// batch in each group: bit j of member[slot][g] is set where visit entry
+// base + j lies in group g (g = MAX_GROUPS: in any later group).
+struct GroupShared {
+    float4 box[MAX_GROUPS][2];
+    unsigned member[2][MAX_GROUPS + 1];
+};
+
+__device__ __forceinline__ GroupShared& group_shared() {
+    __shared__ GroupShared sh;
+    return sh;
+}
+
+// Warp 0 writes the member words of visit entries [base, base + BATCH): a
+// ballot for each group present (one coalesced pass over the entries).
+__device__ __forceinline__ void stage_members(const int* __restrict__ order,
+                                              int n_chunks, int base,
+                                              unsigned* member) {
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    for (int g = lane; g <= MAX_GROUPS; g += 32) member[g] = 0u;
+    __syncwarp();
+    const bool in = base + lane < n_chunks;
+    const unsigned g =
+        in ? min((unsigned)__ldg(order + base + lane) / GROUP,
+                 (unsigned)MAX_GROUPS)
+           : 0u;
+    unsigned todo = __ballot_sync(0xffffffffu, in);
+    while (todo) {
+        const unsigned lead = __shfl_sync(0xffffffffu, g, __ffs(todo) - 1);
+        const unsigned m = __ballot_sync(0xffffffffu, in && g == lead);
+        if (lane == 0) member[lead] = m;
+        todo &= ~m;
+    }
+}
+
 // ---- the wavefront kernels' bounce -----------------------------------------
 // The wave kernels keep a loop of their own: on the cull_scan template
 // below they ran 0-4 % slower on an H100 (PERF.md), so only the whole-frame
@@ -211,20 +302,25 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ tab,
 //
 // LANES > 1: the LANES consecutive lanes of a warp from a multiple of LANES
 // hold the same ray (the caller gives them the same state, and all return
-// the same result).  Lane g of the group tests the g-th share of a batch's
-// boxes and scans triangles g, g + LANES, ... of a live chunk, from the
-// ray's best t at the chunk's start; shuffles then take the least (t,
-// index) of the shares.  That is the sequential scan's result: its winner
-// is the first triangle, in index order, of least t below the best t
-// before the chunk.  LANES warps share a tile's pairs where one ran them: a
-// tile with much work (dragon, after a bounce) runs its dependent chains in
-// 1/LANES of the time.
-template <bool TRACK_IDX, int LANES = 1>
-__device__ int trace_bounce(const Tables& p, const int* __restrict__ order,
-                            Ray& r, int& tid) {
-    static_assert(LANES == 1 || LANES == 2, "1 or 2 lanes a ray");
+// the same result).  Lane g of the group tests groups g, g + LANES, ... and
+// the g-th share of a batch's boxes, and scans triangles g, g + LANES, ...
+// of a live chunk, from the ray's best t at the chunk's start; shuffles
+// then take the least (t, index) of the shares.  That is the sequential
+// scan's result: its winner is the first triangle, in index order, of
+// least t below the best t before the chunk.  LANES warps share a tile's
+// pairs where one ran them: a tile with much work (dragon, after a bounce)
+// runs its dependent chains in 1/LANES of the time.
+template <bool TRACK_IDX, int LANES = 1, bool GROUPS = false>
+__device__ int trace_bounce(const Tables& p, const Groups& groups,
+                            const int* __restrict__ order, Ray& r, int& tid) {
+    static_assert(LANES == 1 || LANES == 2 || LANES == 4 || LANES == 8,
+                  "1, 2, 4 or 8 lanes a ray");
     constexpr int BOXES = BATCH / LANES;  // box tests a lane a batch
     constexpr int TRIS = CHUNK / LANES;   // pairs a lane a live chunk
+    // one lane a ray tests the entries of its entered groups from the
+    // batch's member words; a lane of several checks the group of each
+    // entry of its share
+    constexpr bool MEMBERS = GROUPS && LANES == 1;
     CullShared<TRI_ROW / 4>& sh = cull_shared<TRI_ROW / 4>();
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
@@ -239,28 +335,72 @@ __device__ int trace_bounce(const Tables& p, const int* __restrict__ order,
     int wch = -1, wtid = -1;
     int buf = 0;  // staging buffer of the next candidate
 
-    // batch b's boxes, ids and mask words are in slot b & 1.  Every read of
-    // a slot precedes a barrier that every thread passes before the slot is
-    // written again (two batches on), also across calls
+    // batch b's boxes, ids, member and mask words are in slot b & 1.  Every
+    // read of a slot precedes a barrier that every thread passes before the
+    // slot is written again (two batches on), also across calls.  The group
+    // boxes are read before the first batch's barrier of the call
+    GroupShared* gsh = nullptr;  // only the instances with group boxes
+    const int n_groups = GROUPS ? min(groups.n, MAX_GROUPS) : 0;
+    if constexpr (GROUPS) {
+        gsh = &group_shared();
+        for (int k = threadIdx.x; k < n_groups * 6; k += blockDim.x)
+            reinterpret_cast<float*>(gsh->box[k / 6])[k % 6] =
+                __ldg(groups.boxes + k);
+        if (MEMBERS) stage_members(order, p.n_chunks, 0, gsh->member[0]);
+    }
     stage_boxes(p.chunks, order, p.n_chunks, 0, sh.box[0], sh.ci[0]);
     __syncthreads();
+
+    // bit g: the ray may enter group g
+    unsigned long long entered = 0ull;
+    if constexpr (GROUPS) {
+        if (alive)
+            for (int g = half; g < n_groups; g += LANES)
+                if (group_entered(gsh->box[g], o, id)) entered |= 1ull << g;
+#pragma unroll
+        for (int step = 1; step < LANES; step *= 2)
+            entered |= __shfl_xor_sync(0xffffffffu, entered, step);
+    }
+
     for (int base = 0, slot = 0; base < p.n_chunks;
          base += BATCH, slot ^= 1) {
         const int nb = min(BATCH, p.n_chunks - base);
         // the next batch's loads overlap this one's tests
-        if (base + BATCH < p.n_chunks)
+        if (base + BATCH < p.n_chunks) {
             stage_boxes(p.chunks, order, p.n_chunks, base + BATCH,
                         sh.box[slot ^ 1], sh.ci[slot ^ 1]);
+            if constexpr (MEMBERS)
+                stage_members(order, p.n_chunks, base + BATCH,
+                              gsh->member[slot ^ 1]);
+        }
 
         // this ray's bits (this lane's share of the batch): the live test
         // without its bt term
         float4 (*box)[2] = sh.box[slot];
         unsigned mask = 0u;
-        if (alive) {
+        if constexpr (MEMBERS) {
+            // the entries of the groups entered and of later groups
+            const unsigned* member = gsh->member[slot];
+            unsigned test = alive ? member[MAX_GROUPS] : 0u;
+            for (unsigned long long e = entered; e; e &= e - 1ull)
+                test |= member[__ffsll((long long)e) - 1];
+            while (test) {
+                const int j = __ffs(test) - 1;
+                test &= test - 1u;
+                float tmin, tmax;
+                slab(box[j], o, id, tmin, tmax);
+                if ((tmin <= tmax) && (tmax >= 0.0f)) mask |= 1u << j;
+            }
+        } else if (alive) {
 #pragma unroll
             for (int m = 0; m < BOXES; ++m) {
                 const int j = half * BOXES + m;
                 if (j < nb) {
+                    if (GROUPS) {
+                        const unsigned g = (unsigned)sh.ci[slot][j] / GROUP;
+                        if (g < MAX_GROUPS && !((entered >> g) & 1ull))
+                            continue;
+                    }
                     float tmin, tmax;
                     slab(box[j], o, id, tmin, tmax);
                     if ((tmin <= tmax) && (tmax >= 0.0f)) mask |= 1u << j;
@@ -291,7 +431,7 @@ __device__ int trace_bounce(const Tables& p, const int* __restrict__ order,
             }
             // the barrier also publishes the staged rows
             const bool scan = __syncthreads_or(live) && alive;
-            // the lanes that scan, both of each ray's pair (converged here)
+            // the lanes that scan, all of each ray's group (converged here)
             const unsigned lanes =
                 LANES > 1 ? __ballot_sync(0xffffffffu, scan) : 0u;
             if (!scan) continue;

@@ -23,8 +23,8 @@
 // bound by bytes.
 //
 // What the TPU kernel does on (th, tw) planes with selects, this does with
-// one thread (the bounce kernel: TRACE_LANES threads) per ray; one block
-// is one tile.  The tile is the unit of two decisions that change which
+// one thread (the bounce kernel: 1 to 8 threads) per ray; one block is one
+// tile.  The tile is the unit of two decisions that change which
 // (ray, triangle) pairs are tested, so it is kept: a chunk of 32 triangles
 // is scanned only when some live ray of the TILE enters its box nearer than
 // its best hit (the TPU's lax.cond(jnp.any(live)) becomes a block vote), and
@@ -38,15 +38,22 @@
 // Bound: operations.  The scan does 46 f32 operations per (ray, triangle)
 // pair and the box test 24 per (ray, chunk), while the payload is 23 words
 // per ray per launch (the recorder writes one more word per ray and
-// bounce).  trace_bounce (tris_trace.cuh) votes once a batch of 32 boxes
-// and once a candidate chunk, stages a candidate's triangles in shared
-// memory and leaves a pair at its first failed test.  What is left bounds
-// both kernels: the issue rate of ~80 instructions a warp-pair and ~30 a
-// box test, and, after a bounce, the latency of the heaviest tiles, which
-// the bounce kernel's lane groups cut.
+// bounce).  trace_bounce (tris_trace.cuh) tests group boxes before chunk
+// boxes, votes once a batch of 32 boxes and once a candidate chunk, stages
+// a candidate's triangles in shared memory and leaves a pair at its first
+// failed test.  What is left bounds both kernels: the issue rate of ~80
+// instructions a warp-pair and ~30 a box test, and, after a bounce, the
+// latency of the heaviest tiles, which the bounce kernel's lane groups cut.
+//
+// The recorder's bounces (K10b) run on a stream whose live rays the sort
+// put first: its glue launches only the tiles that hold them, and from
+// bounce 2 on these are a few hundred heavy tiles at 512x512, fewer than
+// the card holds at two lanes a ray.  rt_wave_bounce gives such a launch
+// the most lanes a ray (8, then 4) at which all its blocks are resident at
+// once, and two lanes otherwise, the full card's choice.
 //
 // Launch bounds: tiles of at most TRACE_BLOCK rays (the default 8x16) take
-// the BOUNDED instances, __launch_bounds__(lanes * TRACE_BLOCK); larger
+// the bounded instances, __launch_bounds__(lanes * TRACE_BLOCK); larger
 // tiles the ones bounded by 1024 threads and one lane a ray.  No minimum of
 // blocks an SM: the kernels compile to 53-60 registers a thread (64 with
 // the index stores at two lanes) with no spills, and a minimum that
@@ -58,28 +65,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #include "tris_trace.cuh"
 
 namespace rt {
 
-// lanes a ray of the bounded bounce kernel (trace_bounce's LANES)
+// lanes a ray of the render bounce kernel (K3) at tiles of at most
+// TRACE_BLOCK rays; larger tiles take one lane a ray
 constexpr int TRACE_LANES = 2;
-
-// An instance is BOUNDED for tiles of at most TRACE_BLOCK rays: the bounce
-// kernel then runs TRACE_LANES lanes a ray, so blocks of that many times
-// tile threads; else one lane a ray, any tile the wrappers allow.
-__host__ __device__ constexpr int bounce_lanes(bool bounded) {
-    return bounded ? TRACE_LANES : 1;
-}
 
 // grid (Wp/tw, Hp/th, F), block th*tw.  Outputs are (F*Hp, Wp) planes in
 // image order; payf holds 10 of them: o(3) d(3) atten(3) primary_dy.
 // TRACK_IDX (the recorder, K10a): idx_out gets the winning row of the
 // triangle table, -1 on a miss; unused without it.
-template <bool TRACK_IDX, bool BOUNDED>
+template <bool TRACK_IDX, bool BOUNDED, bool GROUPS>
 __global__ void __launch_bounds__(max_threads(BOUNDED, 1))
 wave_first_kernel(
-        Tables p, const int* __restrict__ order, CameraRow cam,
+        Tables p, Groups groups, const int* __restrict__ order, CameraRow cam,
         const uint32_t* __restrict__ times, int row0, int height, int width,
         int height_pad, int width_pad, int tw, int normalize_defocus_dir,
         float* __restrict__ payf, uint32_t* __restrict__ state_out,
@@ -100,7 +104,8 @@ wave_first_kernel(
     r.atten = {1.0f, 1.0f, 1.0f};
     r.active = 1;
     int tid;
-    const int wch = trace_bounce<TRACK_IDX>(p, order, r, tid);
+    const int wch =
+        trace_bounce<TRACK_IDX, 1, GROUPS>(p, groups, order, r, tid);
 
     payf[0 * n + i] = r.o.x;
     payf[1 * n + i] = r.o.y;
@@ -147,20 +152,21 @@ __global__ void wave_raygen_kernel(
     state_out[i] = state;
 }
 
-// grid n / tile, block tile.  pay is (9, n): o(3) d(3) atten(3); pay, state
-// and active are updated in place.  tile_order is (n_tiles * n_chunks).
-// TRACK_IDX (the recorder, K10b): idx_out is (n_bounces, n) and plane b gets
-// bounce b's winning row of the triangle table, -1 on a miss, on a dead ray
-// and in every bounce a tile skipped; unused without it.
-template <bool TRACK_IDX, bool BOUNDED>
-__global__ void __launch_bounds__(
-        max_threads(BOUNDED, bounce_lanes(BOUNDED)))
+// grid: the first tiles of the stream (all n / tile of them, or those that
+// hold its live rays), block tile * L.  pay is (9, n): o(3) d(3) atten(3);
+// pay, state and active of the launched tiles are updated in place.
+// tile_order is (tiles launched * n_chunks).  TRACK_IDX (the recorder,
+// K10b): idx_out is (n_bounces, n) and plane b gets bounce b's winning row
+// of the triangle table, -1 on a miss, on a dead ray and in every bounce a
+// tile skipped; unused without it.  L lanes a ray: 1 for tiles above
+// TRACE_BLOCK rays, else 2, 4 or 8.
+template <bool TRACK_IDX, int L, bool GROUPS>
+__global__ void __launch_bounds__(max_threads(L > 1, L))
 wave_bounce_kernel(
-        Tables p, const int* __restrict__ tile_order, size_t n, int n_bounces,
-        float* __restrict__ pay, uint32_t* __restrict__ state,
+        Tables p, Groups groups, const int* __restrict__ tile_order, size_t n,
+        int n_bounces, float* __restrict__ pay, uint32_t* __restrict__ state,
         int* __restrict__ active, int* __restrict__ wch_out,
         int* __restrict__ idx_out) {
-    constexpr int L = bounce_lanes(BOUNDED);
     const bool lead = threadIdx.x % L == 0;  // stores the group's ray
     const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / L;
     const int* order = tile_order + (size_t)blockIdx.x * p.n_chunks;
@@ -179,7 +185,7 @@ wave_bounce_kernel(
         // and a tile with no live ray stays so for the remaining bounces
         if (!__syncthreads_or(r.active > 0)) break;
         int tid;
-        wch = trace_bounce<TRACK_IDX, L>(p, order, r, tid);
+        wch = trace_bounce<TRACK_IDX, L, GROUPS>(p, groups, order, r, tid);
         if (TRACK_IDX && lead) idx_out[b * n + i] = tid;
     }
     if (!lead) return;
@@ -207,79 +213,153 @@ wave_bounce_kernel(
 // ---- plain C interface (loaded with ctypes) ---------------------------------
 // Pointers are device pointers except ``cam`` (20 host floats).  Each function
 // launches on ``stream`` and returns cudaGetLastError() as an int
-// (cudaErrorInvalidValue, launching nothing, when ``chunk`` is not CHUNK).
-// ``idx`` non-null launches the recording instance (K10a, K10b), null the
-// render one.
+// (cudaErrorInvalidValue, launching nothing, when ``chunk`` is not CHUNK or
+// an argument is out of range).  ``idx`` non-null launches the recording
+// instance (K10a, K10b), null the render one.  ``groups``: the table's
+// (n_groups, 6) group boxes, or null with n_groups 0.
 
 namespace {
 
-template <bool TRACK_IDX, bool BOUNDED>
+template <bool TRACK_IDX, bool BOUNDED, bool GROUPS>
 void launch_first(dim3 grid, int block, cudaStream_t stream,
-                  const rt::Tables& p, const int* order,
+                  const rt::Tables& p, const rt::Groups& g, const int* order,
                   const rt::CameraRow& row, const uint32_t* times, int row0,
                   int height, int width, int height_pad, int width_pad,
                   int tw, int normalize_defocus_dir, float* payf,
                   uint32_t* state, int* active, int* wch, int* idx) {
-    rt::wave_first_kernel<TRACK_IDX, BOUNDED><<<grid, block, 0, stream>>>(
-        p, order, row, times, row0, height, width, height_pad, width_pad,
-        tw, normalize_defocus_dir, payf, state, active, wch, idx);
+    rt::wave_first_kernel<TRACK_IDX, BOUNDED, GROUPS>
+        <<<grid, block, 0, stream>>>(
+            p, g, order, row, times, row0, height, width, height_pad,
+            width_pad, tw, normalize_defocus_dir, payf, state, active, wch,
+            idx);
 }
 
-template <bool TRACK_IDX, bool BOUNDED>
-void launch_bounce(unsigned grid, int block, cudaStream_t stream,
-                   const rt::Tables& p, const int* tile_order, size_t n,
-                   int n_bounces, float* pay, uint32_t* state, int* active,
-                   int* wch, int* idx) {
-    rt::wave_bounce_kernel<TRACK_IDX, BOUNDED><<<grid, block, 0, stream>>>(
-        p, tile_order, n, n_bounces, pay, state, active, wch, idx);
+template <bool TRACK_IDX, int L, bool GROUPS>
+void launch_bounce(unsigned grid, int tile, cudaStream_t stream,
+                   const rt::Tables& p, const rt::Groups& g,
+                   const int* tile_order, size_t n, int n_bounces, float* pay,
+                   uint32_t* state, int* active, int* wch, int* idx) {
+    rt::wave_bounce_kernel<TRACK_IDX, L, GROUPS>
+        <<<grid, tile * L, 0, stream>>>(p, g, tile_order, n, n_bounces, pay,
+                                        state, active, wch, idx);
+}
+
+// The blocks of the recorder's bounce kernel at L lanes a ray that the
+// current device holds at once (its SMs times the blocks resident on one)
+// into *blocks.  Asked of the runtime once for each (device, tile rays,
+// grouped) and kept: the record loop launches this kernel four times a
+// record from the host.  Returns the error of a failed query.
+template <int L>
+cudaError_t resident_blocks(int tile, bool grouped, int* blocks) {
+    struct Known { int device, tile; bool grouped; int blocks; };
+    static std::mutex mu;
+    static std::vector<Known> known;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    for (const Known& k : known) {
+        if (k.device == device && k.tile == tile && k.grouped == grouped) {
+            *blocks = k.blocks;
+            return cudaSuccess;
+        }
+    }
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm,
+        grouped ? rt::wave_bounce_kernel<true, L, true>
+                : rt::wave_bounce_kernel<true, L, false>,
+        tile * L, 0);
+    if (err != cudaSuccess) return err;
+    known.push_back({device, tile, grouped, per_sm * sms});
+    *blocks = per_sm * sms;
+    return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int rt_wave_first(
         const float* tab, const float* mats, const float* chunks,
-        const int* order, const float* cam, const uint32_t* times, int row0,
-        float* payf, uint32_t* state, int* active, int* wch, int* idx,
-        int n_chunks, int chunk, int n_mats, int height, int width,
-        int height_pad, int width_pad, int n_frames, int th, int tw,
+        const float* groups, const int* order, const float* cam,
+        const uint32_t* times, int row0, float* payf, uint32_t* state,
+        int* active, int* wch, int* idx, int n_chunks, int n_groups,
+        int chunk, int n_mats, int height, int width, int height_pad,
+        int width_pad, int n_frames, int th, int tw,
         int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
         int has_dielectric, void* stream) {
     if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
     rt::Tables p = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
+    const rt::Groups g = {groups, n_groups};
     rt::CameraRow row;
     for (int c = 0; c < 20; ++c) row.v[c] = cam[c];
     dim3 grid(width_pad / tw, height_pad / th, n_frames);
     const int block = th * tw;
     const bool bounded = block <= rt::TRACE_BLOCK;
-    auto launch = idx ? (bounded ? launch_first<true, true>
-                                 : launch_first<true, false>)
-                      : (bounded ? launch_first<false, true>
-                                 : launch_first<false, false>);
-    launch(grid, block, (cudaStream_t)stream, p, order, row, times, row0,
+    const bool grouped = n_groups > 0;
+    auto launch =
+        idx ? (bounded ? (grouped ? launch_first<true, true, true>
+                                  : launch_first<true, true, false>)
+                       : (grouped ? launch_first<true, false, true>
+                                  : launch_first<true, false, false>))
+            : (bounded ? (grouped ? launch_first<false, true, true>
+                                  : launch_first<false, true, false>)
+                       : (grouped ? launch_first<false, false, true>
+                                  : launch_first<false, false, false>));
+    launch(grid, block, (cudaStream_t)stream, p, g, order, row, times, row0,
            height, width, height_pad, width_pad, tw, normalize_defocus_dir,
            payf, state, active, wch, idx);
     return (int)cudaGetLastError();
 }
 
+// n: the stream's rays (the planes' stride); n_tiles: the tiles launched,
+// the stream's first.
 extern "C" int rt_wave_bounce(
         const float* tab, const float* mats, const float* chunks,
-        const int* tile_order, float* pay, uint32_t* state, int* active,
-        int* wch, int* idx, long long n, int tile, int n_bounces,
-        int n_chunks, int chunk, int n_mats, int normalize_reflect_in,
-        int has_metal, int has_dielectric, void* stream) {
+        const float* groups, const int* tile_order, float* pay,
+        uint32_t* state, int* active, int* wch, int* idx, long long n,
+        int n_tiles, int tile, int n_bounces, int n_chunks, int n_groups,
+        int chunk, int n_mats, int normalize_reflect_in, int has_metal,
+        int has_dielectric, void* stream) {
     if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
     rt::Tables p = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
-    const unsigned grid = (unsigned)(n / tile);
+    const rt::Groups g = {groups, n_groups};
     const bool bounded = tile <= rt::TRACE_BLOCK;
-    auto launch = idx ? (bounded ? launch_bounce<true, true>
-                                 : launch_bounce<true, false>)
-                      : (bounded ? launch_bounce<false, true>
-                                 : launch_bounce<false, false>);
-    launch(grid, tile * rt::bounce_lanes(bounded), (cudaStream_t)stream, p,
-           tile_order, (size_t)n,
-           n_bounces, pay, state, active, wch, idx);
+    const bool grouped = n_groups > 0;
+    // the recorder's launch: the most lanes at which all its blocks are
+    // resident at once
+    int L = !bounded ? 1 : rt::TRACE_LANES;
+    if (bounded && idx) {
+        int at8 = 0, at4 = 0;
+        cudaError_t err = resident_blocks<8>(tile, grouped, &at8);
+        if (err == cudaSuccess) err = resident_blocks<4>(tile, grouped, &at4);
+        if (err != cudaSuccess) return (int)err;
+        L = n_tiles <= at8 ? 8 : n_tiles <= at4 ? 4 : 2;
+    }
+    // group boxes at 2 lanes in the render kernel and at 4 and 8 in the
+    // recorder's: its 2-lane instance spilled registers with them and ran
+    // 1-3 % slower on an H100 (PERF.md); tiles above TRACE_BLOCK rays (one
+    // lane a ray) test chunk boxes only
+    decltype(&launch_bounce<true, 1, false>) launch = nullptr;
+    switch (L) {
+        case 1: launch = idx ? launch_bounce<true, 1, false>
+                             : launch_bounce<false, 1, false>; break;
+        case 2: launch = idx ? launch_bounce<true, 2, false>
+                             : grouped ? launch_bounce<false, 2, true>
+                                       : launch_bounce<false, 2, false>;
+                break;
+        case 4: launch = grouped ? launch_bounce<true, 4, true>
+                                 : launch_bounce<true, 4, false>; break;
+        case 8: launch = grouped ? launch_bounce<true, 8, true>
+                                 : launch_bounce<true, 8, false>; break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    launch((unsigned)n_tiles, tile, (cudaStream_t)stream, p, g, tile_order,
+           (size_t)n, n_bounces, pay, state, active, wch, idx);
     return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,14 @@ Three kernels carry the wavefront path, each a hand-written CUDA kernel
 
 With ``track_idx`` the first two are the recorder's K10a and K10b
 (``LAUNCHES["wave_record"]``, ``["wave_record_bounce"]``): the same bounce,
-and per bounce the winning row of the triangle table (-1 on a miss).
+and per bounce the winning row of the triangle table (-1 on a miss).  The
+recorder launches K10b on the tiles that hold the stream's live rays only
+(``live_tiles``).
+
+The wave kernels test a ray against the group boxes of ``GROUP``
+consecutive table chunks (``group_boxes``) before the chunk boxes inside:
+a chunk box lies within its group's, so the group test only skips chunk
+tests that would have failed.
 
 Two more trace a whole frame in one launch (``csrc/tris_mono.cu``), with the
 same bounce (``trace_bounce`` here, ``csrc/tris_trace.cuh`` there):
@@ -34,9 +41,10 @@ a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches, nothing else.
 
 The plain versions are vectorised over all tiles at once — tensors are
-(n_tiles, th*tw) — and loop over chunks and triangles in Python.  The
-tile-union chunk skip is ``live.any(dim=1)``: a tile scans a chunk only if
-one of its live rays enters the chunk's box nearer than its best hit.
+(n_tiles, th*tw) — and loop over chunks in Python, and over a chunk's
+triangles on the CPU (a card takes the 32 at once).  The tile-union chunk
+skip is ``live.any(dim=1)``: a tile scans a chunk only if one of its live
+rays enters the chunk's box nearer than its best hit.
 """
 
 from __future__ import annotations
@@ -54,6 +62,12 @@ from rt_torch.core import vecmath as vm
 from rt_torch.kernels import tracer_common as tc
 
 CHUNK = 32        # triangles per chunk
+GROUP = 32        # chunks per group box (csrc/tris_trace.cuh GROUP)
+MAX_GROUPS = 64   # group boxes a ray tests (csrc/tris_trace.cuh MAX_GROUPS)
+# tables of fewer groups get none: a ray enters nearly every one of 2 or 3
+# groups over a mesh, and their test cost Suzanne's (2 groups) K2 and K3
+# 2-5 % on an H100 (PERF.md)
+MIN_GROUPS = 4
 TRI_COLS = 13     # a(3), e1 = b-a (3), e2 = c-a (3), normal(3), mat_id as f32
 DEAD_KEY = 2**31 - 1   # sort key of a dead ray: after every live key
 KEY_BITS = 8           # origin bits per axis of the morton key
@@ -78,6 +92,9 @@ class PackedScene(NamedTuple):
     chunks: torch.Tensor    # (n_chunks, 6) f32: box min xyz, max xyz
     centroid: torch.Tensor  # (n_chunks, 3) f32 box centres
     order: torch.Tensor     # (m,) int64: scene triangle id of each table row
+    # (n_groups, 6) f32 boxes of GROUP consecutive chunks (``group_boxes``);
+    # None for a table of fewer than MIN_GROUPS groups
+    groups: torch.Tensor | None = None
 
     @property
     def n_chunks(self) -> int:
@@ -169,8 +186,23 @@ def pack_tri_table(scene, chunk: int = CHUNK,
     vmax = verts_max.reshape(-1, chunk * 3, 3).amax(dim=1)
     chunks = torch.cat([vmin, vmax], dim=1)
     centroid = (chunks[:, 0:3] + chunks[:, 3:6]) * 0.5
+    many = chunks.shape[0] > GROUP * (MIN_GROUPS - 1)
+    groups = group_boxes(chunks) if many else None
     return PackedScene(tab.contiguous(), mats.contiguous(),
-                       chunks.contiguous(), centroid, order)
+                       chunks.contiguous(), centroid, order, groups)
+
+
+def group_boxes(chunks: torch.Tensor, group: int = GROUP) -> torch.Tensor:
+    """(ceil(n_chunks / group), 6) f32: the exact min and max of the boxes
+    of each run of ``group`` consecutive chunks (the last run may be
+    shorter).  The table is Morton-clustered, so the runs are compact."""
+    n = chunks.shape[0]
+    pad = -n % group
+    if pad:         # repeats of the last box change no min or max
+        chunks = torch.cat([chunks, chunks[-1:].expand(pad, 6)])
+    runs = chunks.reshape(-1, group, 6)
+    return torch.cat([runs[:, :, 0:3].amin(dim=1),
+                      runs[:, :, 3:6].amax(dim=1)], dim=1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +218,33 @@ def _fmax(a, b):
     return torch.where(torch.isnan(a) | (b > a), b, a)
 
 
+def _moller_trumbore(o, d, col):
+    """(valid, t) of rays o, d against the triangles of columns ``col``
+    (broadcast), every test but the strict t < best."""
+    e1 = (col[3], col[4], col[5])
+    e2 = (col[6], col[7], col[8])
+    h = vm.cross3(d, e2)
+    det = vm.dot3(e1, h)
+    inv_det = 1.0 / det
+    s = (o[0] - col[0], o[1] - col[1], o[2] - col[2])
+    u = inv_det * vm.dot3(s, h)
+    q = vm.cross3(s, e1)
+    v = inv_det * vm.dot3(d, q)
+    t = inv_det * vm.dot3(e2, q)
+    valid = torch.abs(det) >= _EPS
+    valid &= (u >= 0.0) & (u <= 1.0)
+    valid &= (v >= 0.0) & (u + v <= 1.0)
+    valid &= t >= _EPS
+    return valid, t
+
+
+def _whole_chunks(rays: torch.Tensor) -> bool:
+    """Whether the plain scan takes a chunk's 32 triangles at once: on a
+    card, where it is bound by its launches; not on the CPU, where torch's
+    reductions over a small dimension cost more than the loop over them."""
+    return rays.is_cuda
+
+
 def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
                  chunk: int = CHUNK, scan_counts=None,
                  track_idx: bool = False):
@@ -195,17 +254,19 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
     order: (n_tiles, n_chunks) int64 chunk visit order per tile.
     carry: (state int64, o3, d3, atten3, active int32), each (n_tiles, T).
     Returns (state, o3, d3, atten3, active, winning chunk id or -1).
-    scan_counts: optional list; gets one [ray-chunk scans, ray-chunk box
-    tests, tile-chunk visits, candidates, tile-chunk scans, the most
-    chunks one tile scans] entry appended — the work this bounce's data
-    asked for: every live ray of a tile scans each chunk that is live for
-    the tile, and every ray of a tile with a live ray tests every chunk's
-    box.  The next three count per tile with a live ray: every chunk of its
-    order (visits); the chunks whose box some live ray of the tile enters
-    at t >= 0 whatever its best t (candidates: the bits of the kernel's
-    batch mask, each of which the kernel stages and votes on); the chunks
-    it scans.  The last is the heaviest tile's share of those, which a
-    block runs alone once the others are done.
+    scan_counts: optional list; gets one [ray-chunk scans, box tests,
+    tile-chunk visits, candidates, tile-chunk scans, the most chunks one
+    tile scans, ray-chunk box tests] entry appended — the work this
+    bounce's data asked for: every live ray of a tile scans each chunk
+    that is live for the tile; the box tests are what the table's group
+    boxes leave (``group_box_tests``), or without them every ray of a tile
+    with a live ray against every chunk's box, which the last entry counts
+    in either case.  The next three count per tile with a live ray: every
+    chunk of its order (visits); the chunks whose box some live ray of the
+    tile enters at t >= 0 whatever its best t (candidates: the bits of the
+    kernel's batch mask, each of which the kernel stages and votes on); the
+    chunks it scans.  The sixth is the heaviest tile's share of those,
+    which a block runs alone once the others are done.
     """
     tab, mats, chunks = packed.tab, packed.mats, packed.chunks
     state, o, d, atten, active = carry
@@ -220,6 +281,10 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
     alive_per_tile = alive.sum(dim=1)
     scans = candidates = 0
     tile_scans = torch.zeros_like(alive_per_tile)
+    whole = _whole_chunks(o[0])
+    ks = torch.arange(chunk, device=order.device)
+    o3 = tuple(x[None] for x in o)
+    d3 = tuple(x[None] for x in d)
 
     for oi in range(packed.n_chunks):
         ci = order[:, oi]                                   # (n_tiles,)
@@ -248,37 +313,51 @@ def trace_bounce(packed: PackedScene, order, carry, flags: TraceFlags, *,
 
         prev = bt
         lo = ci * chunk
-        for k in range(chunk):
-            tri = tab[lo + k]                               # (n_tiles, 13)
-            col = [tri[:, c:c + 1] for c in range(TRI_COLS)]
-            e1 = (col[3], col[4], col[5])
-            e2 = (col[6], col[7], col[8])
-            h = vm.cross3(d, e2)
-            det = vm.dot3(e1, h)
-            inv_det = 1.0 / det
-            s = (o[0] - col[0], o[1] - col[1], o[2] - col[2])
-            u = inv_det * vm.dot3(s, h)
-            q = vm.cross3(s, e1)
-            v = inv_det * vm.dot3(d, q)
-            t = inv_det * vm.dot3(e2, q)
-            valid = tile_live & (torch.abs(det) >= _EPS)
-            valid &= (u >= 0.0) & (u <= 1.0)
-            valid &= (v >= 0.0) & (u + v <= 1.0)
-            valid &= (t >= _EPS) & (t < bt)
-            bt = torch.where(valid, t, bt)
-            bn = vm.where3(valid, (col[9], col[10], col[11]), bn)
-            bmid = torch.where(valid, col[12], bmid)
+        if not whole:
+            for k in range(chunk):
+                tri = tab[lo + k]                           # (n_tiles, 13)
+                col = [tri[:, c:c + 1] for c in range(TRI_COLS)]
+                valid, t = _moller_trumbore(o, d, col)
+                valid &= tile_live & (t < bt)
+                bt = torch.where(valid, t, bt)
+                bn = vm.where3(valid, (col[9], col[10], col[11]), bn)
+                bmid = torch.where(valid, col[12], bmid)
+                if track_idx:
+                    btid = torch.where(valid, (lo + k)[:, None].to(
+                        btid.dtype), btid)
+        else:
+            # the chunk's 32 triangles at once, (32, n_tiles, T): the scan
+            # in index order with strict t < best ends at the least valid t
+            # below the best t before the chunk, set by the first triangle
+            # of that t
+            rows = tab[lo[:, None] + ks]                    # (n_tiles, 32, 13)
+            col = [c[:, :, None] for c in rows.permute(2, 1, 0)]
+            valid, t = _moller_trumbore(o3, d3, col)
+            valid &= tile_live[None]
+            t = torch.where(valid, t, math.inf)
+            tmin = t.amin(dim=0)
+            k = torch.where(valid & (t == tmin), ks[:, None, None],
+                            chunk).amin(dim=0)
+            won = tmin < bt
+            k = torch.clamp(k, max=chunk - 1)   # read only where it won
+            bt = torch.where(won, tmin, bt)
+            bn = vm.where3(won, tuple(torch.gather(rows[:, :, c], 1, k)
+                                      for c in (9, 10, 11)), bn)
+            bmid = torch.where(won, torch.gather(rows[:, :, 12], 1, k), bmid)
             if track_idx:
-                btid = torch.where(valid, (lo + k)[:, None].to(btid.dtype),
+                btid = torch.where(won, (lo[:, None] + k).to(btid.dtype),
                                    btid)
         # the chunk whose scan last improved best-t owns the hit
         wch = torch.where(bt < prev, ci[:, None].to(wch.dtype), wch)
 
     if scan_counts is not None:
         tiles = int((alive_per_tile > 0).sum())
-        scan_counts.append([scans, tiles * alive.shape[1] * packed.n_chunks,
-                            tiles * packed.n_chunks, candidates,
-                            int(tile_scans.sum()), int(tile_scans.max())])
+        every_box = tiles * alive.shape[1] * packed.n_chunks
+        boxes = every_box if packed.groups is None else sum(
+            group_box_tests(packed, o, d, alive)[::2])
+        scan_counts.append([scans, boxes, tiles * packed.n_chunks,
+                            candidates, int(tile_scans.sum()),
+                            int(tile_scans.max()), every_box])
 
     hit = alive & (bt != _FLT_MAX)
 
@@ -390,45 +469,103 @@ def wave_raygen_plain(cam_row, times, row0: int, *, height: int, width: int,
     return od, d[1].reshape(-1), rng.to_i32(state.reshape(-1))
 
 
-def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
-                      flags: TraceFlags, *, n_bounces: int, th: int, tw: int,
-                      track_idx: bool = False, scan_counts=None):
-    """Plain version of ``wave_bounce``: updates pay/state/active in place
-    and returns the last fused bounce's winning-chunk plane (and with
-    ``track_idx`` the index planes)."""
-    n = state.shape[0]
-    tile = th * tw
+def enters_groups(groups, o, inv_d):
+    """The wave kernels' group test (``csrc/tris_trace.cuh``
+    ``group_entered``) on rays (..., 3 planes) against every group box:
+    (..., n_groups) bool, False only where the ray enters none of the
+    group's chunk boxes.  An axis whose products hold a NaN is widened to
+    everything.  Plain tensor code for counts and tests; the render and
+    record results never depend on it."""
+    lo, hi = groups[:, 0:3], groups[:, 3:6]
+    tmin = tmax = None
+    for c in range(3):
+        oc, ic = o[c][..., None], inv_d[c][..., None]
+        t0 = (lo[:, c] - oc) * ic
+        t1 = (hi[:, c] - oc) * ic
+        nan = torch.isnan(t0 + t1)
+        a = torch.where(nan, -math.inf, torch.fmin(t0, t1))
+        b = torch.where(nan, math.inf, torch.fmax(t0, t1))
+        tmin = a if tmin is None else torch.fmax(tmin, a)
+        tmax = b if tmax is None else torch.fmin(tmax, b)
+    return (tmin <= tmax) & (tmax >= 0.0)
+
+
+def group_box_tests(packed: PackedScene, o, d, alive):
+    """The box tests of the live rays (``alive``; planes o, d of its shape)
+    over a table with group boxes, as (group boxes tested, group boxes
+    entered, chunk boxes tested) summed over the rays: each tests the first
+    MAX_GROUPS group boxes (``enters_groups``), then the chunk boxes of the
+    groups it enters and every chunk past those groups."""
+    groups = packed.groups[:MAX_GROUPS]
+    n_groups = groups.shape[0]
+    o = tuple(c[alive] for c in o)
+    inv_d = tuple(1.0 / c[alive] for c in d)
+    entered = enters_groups(groups, o, inv_d)           # (live rays, groups)
+    sizes = torch.full((n_groups,), GROUP, device=groups.device)
+    sizes[-1] = min(GROUP, packed.n_chunks - GROUP * (n_groups - 1))
+    past = packed.n_chunks - int(sizes.sum())
+    rays = entered.shape[0]
+    return (rays * n_groups, int(entered.sum()),
+            int((entered * sizes).sum()) + rays * past)
+
+
+def _launched_tiles(n: int, tile: int, live_tiles: int | None) -> int:
+    """The tiles a bounce launch traces: all n / tile of the stream, or its
+    first ``live_tiles``."""
     if n % tile:
         raise ValueError(f"stream of {n} rays is not a multiple of the "
                          f"{tile}-ray tile")
-    n_tiles = n // tile
-    order = tile_order.to(torch.int64).reshape(n_tiles, -1)
-    p = pay.reshape(9, n_tiles, tile)
-    carry = (rng.from_i32(state).reshape(n_tiles, tile),
-             (p[0], p[1], p[2]), (p[3], p[4], p[5]), (p[6], p[7], p[8]),
-             active.reshape(n_tiles, tile))
-    wch = torch.full((n_tiles, tile), -1, dtype=torch.int32,
-                     device=state.device)
-    planes = []
-    for _ in range(n_bounces):
-        # a tile with no live ray is skipped by the kernel; here its lanes
-        # pass through trace_bounce unchanged (no chunk is live for it)
-        # except the chunk plane, which the skip leaves as it was; its
-        # index plane is -1, as trace_bounce gives a dead ray
-        tile_alive = (carry[4] > 0).any(dim=1, keepdim=True)
-        out = trace_bounce(packed, order, tuple(carry), flags,
-                           scan_counts=scan_counts, track_idx=track_idx)
-        carry = out[:5]
-        wch = torch.where(tile_alive, out[5], wch)
-        if track_idx:
-            planes.append(out[6].reshape(n))
-    s, o, d, atten, act = carry
-    pay.copy_(torch.stack([*o, *d, *atten]).reshape(9, n))
-    state.copy_(rng.to_i32(s).reshape(n))
-    active.copy_(act.reshape(n))
-    if track_idx:
-        return wch.reshape(n), torch.stack(planes)
-    return wch.reshape(n)
+    if live_tiles is None:
+        return n // tile
+    if not 0 <= live_tiles <= n // tile:
+        raise ValueError(f"live_tiles {live_tiles}: the stream has "
+                         f"{n // tile} tiles")
+    return live_tiles
+
+
+def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
+                      flags: TraceFlags, *, n_bounces: int, th: int, tw: int,
+                      track_idx: bool = False, scan_counts=None,
+                      live_tiles: int | None = None):
+    """Plain version of ``wave_bounce``: updates pay/state/active in place
+    and returns the last fused bounce's winning-chunk plane (and with
+    ``track_idx`` the index planes).  live_tiles: as ``wave_bounce``; a
+    live ray past those tiles raises."""
+    n = state.shape[0]
+    tile = th * tw
+    n_tiles = _launched_tiles(n, tile, live_tiles)
+    m = n_tiles * tile
+    if bool((active[m:] > 0).any()):
+        raise ValueError(f"a live ray lies past the first {n_tiles} tiles")
+    wch_out = torch.full((n,), -1, dtype=torch.int32, device=state.device)
+    idx_out = (torch.full((n_bounces, n), -1, dtype=torch.int32,
+                          device=state.device) if track_idx else None)
+    if n_tiles:
+        order = tile_order.to(torch.int64).reshape(n_tiles, -1)
+        p = pay[:, :m].reshape(9, n_tiles, tile)
+        carry = (rng.from_i32(state[:m]).reshape(n_tiles, tile),
+                 (p[0], p[1], p[2]), (p[3], p[4], p[5]), (p[6], p[7], p[8]),
+                 active[:m].reshape(n_tiles, tile))
+        wch = torch.full((n_tiles, tile), -1, dtype=torch.int32,
+                         device=state.device)
+        for b in range(n_bounces):
+            # a tile with no live ray is skipped by the kernel; here its
+            # lanes pass through trace_bounce unchanged (no chunk is live
+            # for it) except the chunk plane, which the skip leaves as it
+            # was; its index plane is -1, as trace_bounce gives a dead ray
+            tile_alive = (carry[4] > 0).any(dim=1, keepdim=True)
+            out = trace_bounce(packed, order, tuple(carry), flags,
+                               scan_counts=scan_counts, track_idx=track_idx)
+            carry = out[:5]
+            wch = torch.where(tile_alive, out[5], wch)
+            if track_idx:
+                idx_out[b, :m] = out[6].reshape(m)
+        s, o, d, atten, act = carry
+        pay[:, :m] = torch.stack([*o, *d, *atten]).reshape(9, m)
+        state[:m] = rng.to_i32(s).reshape(m)
+        active[:m] = act.reshape(m)
+        wch_out[:m] = wch.reshape(m)
+    return (wch_out, idx_out) if track_idx else wch_out
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +604,16 @@ def _require_tables(packed: PackedScene, chunk: int):
                          "need a 16-byte aligned table")
     _require(packed.mats, "mats", torch.float32, (packed.mats.shape[0], 5))
     _require(packed.chunks, "chunks", torch.float32, (m_pad // chunk, 6))
+    if packed.groups is not None:
+        _require(packed.groups, "groups", torch.float32,
+                 (-(-packed.n_chunks // GROUP), 6))
+
+
+def _groups(packed: PackedScene):
+    """(pointer or None, count) of the tables' group boxes."""
+    if packed.groups is None:
+        return None, 0
+    return packed.groups.data_ptr(), packed.groups.shape[0]
 
 
 def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
@@ -508,17 +655,18 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
            else None)
     cam = _cam_array(cam_row)
 
+    groups, n_groups = _groups(packed)
     lib = _build.load()
     code = lib.rt_wave_first(
         packed.tab.data_ptr(), packed.mats.data_ptr(),
-        packed.chunks.data_ptr(), order.data_ptr(), cam.ctypes.data,
+        packed.chunks.data_ptr(), groups, order.data_ptr(), cam.ctypes.data,
         times.data_ptr(), row0, payf.data_ptr(), state.data_ptr(),
         active.data_ptr(), wch.data_ptr(),
-        None if idx is None else idx.data_ptr(), packed.n_chunks, CHUNK,
-        packed.mats.shape[0], height, width, height_pad, width_pad, n_frames,
-        th, tw, int(normalize_defocus_dir), int(flags.normalize_reflect_in),
-        int(flags.has_metal), int(flags.has_dielectric),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if idx is None else idx.data_ptr(), packed.n_chunks, n_groups,
+        CHUNK, packed.mats.shape[0], height, width, height_pad, width_pad,
+        n_frames, th, tw, int(normalize_defocus_dir),
+        int(flags.normalize_reflect_in), int(flags.has_metal),
+        int(flags.has_dielectric), torch.cuda.current_stream(dev).cuda_stream)
     name = "wave_record" if track_idx else "wave_first"
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
@@ -567,53 +715,61 @@ def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
 
 def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
                 flags: TraceFlags, *, n_bounces: int, th: int, tw: int,
-                track_idx: bool = False):
+                track_idx: bool = False, live_tiles: int | None = None):
     """``n_bounces`` fused bounces over the ray stream, one tile of th*tw
     consecutive rays per block.  pay (9, n) f32, state (n,) int32 and active
     (n,) int32 are UPDATED IN PLACE.
 
-    tile_order: (n_tiles * n_chunks,) int32, each tile's chunk visit order.
-    Returns the winning-chunk plane (n,) int32 of the last bounce a tile
-    ran (-1 on a miss or a dead ray).  track_idx (the recorder, K10b):
+    tile_order: (tiles traced * n_chunks,) int32, each tile's chunk visit
+    order.  Returns the winning-chunk plane (n,) int32 of the last bounce a
+    tile ran (-1 on a miss or a dead ray).  track_idx (the recorder, K10b):
     returns (that plane, index planes (n_bounces, n) int32: per bounce the
     winning row of the triangle table, -1 on a miss, a dead ray or a
     skipped tile).
+    live_tiles: trace only the stream's first ``live_tiles`` tiles, which
+    must hold all its live rays (a sorted stream: ``DEAD_KEY`` sorts last);
+    the others keep their payload, state and active flags and get -1 in the
+    returned planes, what the kernel gives an all-dead tile.  No launch at
+    0.  The recorder's kernel takes 2, 4 or 8 threads a ray: the most at
+    which all the tiles launched are resident on the card at once.
     """
     if packed.tab.device.type == "cpu":
         return wave_bounce_plain(packed, tile_order, pay, state, active,
                                  flags, n_bounces=n_bounces, th=th, tw=tw,
-                                 track_idx=track_idx)
+                                 track_idx=track_idx, live_tiles=live_tiles)
     from rt_torch.kernels import _build
 
     _check_block(th, tw)
     _require_tables(packed, CHUNK)
     n = state.shape[0]
     tile = th * tw
-    if n % tile:
-        raise ValueError(f"stream of {n} rays is not a multiple of the "
-                         f"{tile}-ray tile")
+    n_tiles = _launched_tiles(n, tile, live_tiles)
     _require(tile_order, "tile_order", torch.int32,
-             (n // tile * packed.n_chunks,))
+             (n_tiles * packed.n_chunks,))
     _require(pay, "pay", torch.float32, (9, n))
     _require(state, "state", torch.int32, (n,))
     _require(active, "active", torch.int32, (n,))
-    wch = torch.empty((n,), dtype=torch.int32, device=state.device)
-    idx = (torch.empty((n_bounces, n), dtype=torch.int32,
-                       device=state.device) if track_idx else None)
-
-    lib = _build.load()
-    code = lib.rt_wave_bounce(
-        packed.tab.data_ptr(), packed.mats.data_ptr(),
-        packed.chunks.data_ptr(), tile_order.data_ptr(), pay.data_ptr(),
-        state.data_ptr(), active.data_ptr(), wch.data_ptr(),
-        None if idx is None else idx.data_ptr(), n, tile,
-        n_bounces, packed.n_chunks, CHUNK, packed.mats.shape[0],
-        int(flags.normalize_reflect_in), int(flags.has_metal),
-        int(flags.has_dielectric),
-        torch.cuda.current_stream(state.device).cuda_stream)
+    # the planes of tiles not launched are -1
+    new = torch.empty if n_tiles * tile == n else functools.partial(
+        torch.full, fill_value=-1)
+    wch = new((n,), dtype=torch.int32, device=state.device)
+    idx = (new((n_bounces, n), dtype=torch.int32, device=state.device)
+           if track_idx else None)
     name = "wave_record_bounce" if track_idx else "wave_bounce"
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+    if n_tiles:
+        groups, n_groups = _groups(packed)
+        lib = _build.load()
+        code = lib.rt_wave_bounce(
+            packed.tab.data_ptr(), packed.mats.data_ptr(),
+            packed.chunks.data_ptr(), groups, tile_order.data_ptr(),
+            pay.data_ptr(), state.data_ptr(), active.data_ptr(),
+            wch.data_ptr(), None if idx is None else idx.data_ptr(), n,
+            n_tiles, tile, n_bounces, packed.n_chunks, n_groups, CHUNK,
+            packed.mats.shape[0], int(flags.normalize_reflect_in),
+            int(flags.has_metal), int(flags.has_dielectric),
+            torch.cuda.current_stream(state.device).cuda_stream)
+        _build.check(lib, code, name)
+        LAUNCHES[name] += 1
     return (wch, idx) if track_idx else wch
 
 
@@ -966,9 +1122,12 @@ def render_color_tris_wave_record(packed: PackedScene, cam_row, time: int, *,
     (m,)) of one frame through the sorted stream: the recorder for large
     meshes (counterpart of ``render_color_tris_wave_record``).  K10a traces
     bounce 0 in pixel tiles; before every later bounce the stream is sorted
-    by the ``morton`` key and one K10b launch traces it.  Per bounce the
-    row of the triangle TABLE each pixel's ray hit, -1 on a miss and from
-    then on; ``order`` maps rows to scene triangle ids.
+    by the ``morton`` key, dead rays last, and one K10b launch traces the
+    tiles that hold its live rays (the others keep their payload, and their
+    index planes are -1): the count of live rays is read on the host, a
+    4-byte copy a bounce.  Per bounce the row of the triangle TABLE each
+    pixel's ray hit, -1 on a miss and from then on; ``order`` maps rows to
+    scene triangle ids.
 
     The color equals ``render_color_tris_wave(..., sort_every=1,
     skip_last_sort=False, key_mode="morton")`` over the same tables bit for
@@ -991,13 +1150,17 @@ def render_color_tris_wave_record(packed: PackedScene, cam_row, time: int, *,
     for _ in range(1, bounces):
         key, perm = torch.sort(ray_sort_key(pay, active, *bounds),
                                stable=True)
+        active = (key != DEAD_KEY).to(torch.int32)
+        live = active.sum()         # read on the host after the gathers
         pay = pay[:, perm]
         state = state[perm]
         pix = perm if pix is None else pix[perm]
-        active = (key != DEAD_KEY).to(torch.int32)
-        _, idx = wave_bounce(packed, tile_chunk_order(packed, pay, tile), pay,
-                             state, active, flags, n_bounces=1, th=th, tw=tw,
-                             track_idx=True)
+        live_tiles = -(-int(live) // tile)
+        _, idx = wave_bounce(
+            packed, tile_chunk_order(packed, pay[:, :live_tiles * tile],
+                                     tile),
+            pay, state, active, flags, n_bounces=1, th=th, tw=tw,
+            track_idx=True, live_tiles=live_tiles)
         planes.append(to_pixels(idx[0], pix))
     atten = to_pixels(pay[6:9], pix)
     dy = to_pixels(pay[4], pix) if sky_from_final_dir else payf[9]

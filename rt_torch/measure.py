@@ -5,18 +5,23 @@
     python -m rt_torch.measure wall [PATH]        # ms per frame, five windows
     python -m rt_torch.measure fit [FIT]          # ms per record and per step
     python -m rt_torch.measure lookup [FIT]       # row lookups, forward+backward
-    python -m rt_torch.measure record [FIT]       # one record, mono vs wave
+    python -m rt_torch.measure record [FIT]       # one record, mono vs wave,
+                                                  # and where a wave record's
+                                                  # device time goes
     python -m rt_torch.measure oracle [PATH]      # ms per frame, oracle
     python -m rt_torch.measure kernels [GROUP]    # ms per launch, K2-K10b
     python -m rt_torch.measure occupancy [PATH]   # live rays, tiles, warps
+    python -m rt_torch.measure occupancy lucy_512 # the recorder's work per
+                                                  # bounce (or dragon_512)
 
 GROUP is ``wave`` (K2, K3, K10a, K10b), ``frame`` (the whole-frame kernels
 K5-K9), ``depth`` (K6 and K7 cut to fewer bounces) or ``all`` (the
 default: wave and frame).  PATH names one of the port's render paths
 (``PATHS`` below, the table ``chip_smoke.py`` drives too; default
 ``suzanne``: Suzanne 512x512, 8 bounces, 1 sample per pixel per frame;
-``occupancy``: ``sphere_cover``), FIT one of its training paths (``FITS``;
-default ``suzanne_1080p``).  All run on ``cuda:0`` and fail
+``occupancy``: ``sphere_cover``; ``occupancy`` also takes the sorted-stream
+recorder's fits ``lucy_512`` and ``dragon_512``), FIT one of its training
+paths (``FITS``; default ``suzanne_1080p``).  All run on ``cuda:0`` and fail
 without a card.  Every line carries the card's name and power limit as
 ``nvidia-smi`` reports them.
 
@@ -116,6 +121,45 @@ FITS = {
 }
 MIN_WINDOW_S = 0.3
 TILES = [(4, 8), (8, 8), (8, 16), (8, 32), (16, 32), (32, 32)]
+
+# published peaks of one H100 SXM (NVIDIA data sheet): a bound is stated
+# against these whatever the card's power limit, which is printed beside it
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12     # dense, tensor cores
+# f32 operations of the scan, from the source: Moeller-Trumbore per (ray,
+# triangle) = 2 cross (9 each) + 4 dot (5 each) + 1 divide + 3 subtract
+# + 3 multiply + 1 add; box test per (ray, chunk or group) = 6 subtract
+# + 6 multiply + 12 min/max
+FLOPS_PER_PAIR = 46
+FLOPS_PER_BOX = 24
+# ray-sphere pair (spheres.cu scan_sphere): 3 subtract + 2 dot (5 each)
+# + 2*dot + r*r + subtract + b*b + 4a*cc + subtract + sqrt + negate
+# + subtract + divide
+FLOPS_PER_SPHERE_PAIR = 23
+# one primary ray (rt_device.cuh generate_ray): 5 RNG floats (convert and
+# divide), 2 two-vector and 2 four-vector normalisations, uv, make_ray,
+# defocus
+FLOPS_PER_RAYGEN = 102
+# the epilogue of the probe's Woop intersection per (ray, triangle)
+# (probes.cu woop_mma_kernel): reciprocal, negate, 3 multiply, 2 add, u + v,
+# 5 compare, select, min
+FLOPS_PER_WOOP_PAIR = 15
+
+
+def bound(counts, nbytes, per_pair=tris_kernel.CHUNK * FLOPS_PER_PAIR,
+          extra_flops=0):
+    """(bound ms, what bounds it, operations): the larger of ``nbytes``
+    over the memory peak and the f32 operations over the f32 peak, the
+    operations from a plain version's counts of this run's data ([pairs or
+    chunk scans, box tests, ...] per bounce, ``per_pair`` operations a
+    scan) plus ``extra_flops``."""
+    flops = extra_flops + sum(s * per_pair + b * FLOPS_PER_BOX
+                              for s, b, *_ in counts)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops)
 
 
 def _card() -> str:
@@ -368,7 +412,9 @@ def record(name: str = "lucy_512", reps: int = 5):
     the sorted-stream one (K10a + K10b, ``"wave"``), by CUDA events, in
     turns (mono, wave, wave, mono); and how far their colors and hit ids
     agree (they differ only where a ray meets two triangles of different
-    chunks at exactly the same t, or at a box-surface rounding)."""
+    chunks at exactly the same t, or at a box-surface rounding).  Then
+    where the wave record's device time goes (``wave_split``), from
+    torch.profiler over ``reps`` records."""
     scene, camera, config, _ = fit_setup(name)
     run = {b: (lambda b=b: replay.record_hits(scene, camera, config, 1000,
                                               tris_backend=b))
@@ -380,15 +426,108 @@ def record(name: str = "lucy_512", reps: int = 5):
     dispatch.reset_launch_counts()
     for b in run:
         run[b]()
+    launches = dispatch.launch_counts()
     (cm, im), (cw, iw) = out["mono"], out["wave"]
     print(json.dumps({
         "measure": "record", "card": _card(), "fit": name,
         "scene_id": FITS[name].scene_id, "size": [config.width,
                                                   config.height],
         "bounces": config.bounces, "triangles": scene.m,
-        "ms_per_record": ms, "launches_per_record": dispatch.launch_counts(),
+        "ms_per_record": ms, "launches_per_record": launches,
         "color_pixels_differ": float((cm != cw).any(dim=-1).float().mean()),
-        "hit_ids_differ": float((im != iw).float().mean())}), flush=True)
+        "hit_ids_differ": float((im != iw).float().mean()),
+        "wave_split": _record_split(run["wave"], reps,
+                                    config.bounces - 1)}), flush=True)
+
+
+# the parts of a wave record the split reads from ranges around a function
+# (module, function, label): the stream sorts are the calls of torch.sort
+# (their kernels alone; the key and the gathers fall to "other")
+_RECORD_PARTS = (
+    (tris_kernel, "pack_tri_table", "table packing"),
+    (tris_kernel, "tile_chunk_order", "tile_chunk_order"),
+    (torch, "sort", "sorts"),
+)
+
+
+def _device_events(prof, names):
+    """The profiled kernels whose name holds one of ``names``, in launch
+    order: [(name, device ms)]."""
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(k in e.name for k in names)]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evs]
+
+
+def _record_split(run, reps: int, bounces: int) -> dict:
+    """Device ms per record of ``run`` (a wave ``record_hits``) by part:
+    the kernels K10a and K10b (by bounce) from their own events, the stream
+    sorts, ``tile_chunk_order`` and the table packing from ranges around
+    them, and everything else; the device's busy ms and its idle share of
+    the record's wall time (host clock, unprofiled)."""
+    from torch.profiler import ProfilerActivity, record_function
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+
+    saved = [(m, f, getattr(m, f)) for m, f, _ in _RECORD_PARTS]
+
+    def ranged(fn, label):
+        def call(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return call
+
+    for (m, f, label), (_, _, fn) in zip(_RECORD_PARTS, saved):
+        setattr(m, f, ranged(fn, label))
+    try:
+        profs = _record_profiles(run, reps, bounces, (
+            ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    finally:
+        for m, f, fn in saved:
+            setattr(m, f, fn)
+    # the device-side events: the kernels and copies, and the ranges'
+    # spans on the device (named by their labels), to which each kernel
+    # that starts inside one belongs
+    labels = [label for *_, label in _RECORD_PARTS]
+    split = dict.fromkeys(["K10a", *(f"K10b b{b + 1}" for b in
+                                     range(bounces)), *labels], 0.0)
+    busy, spans = 0.0, 0
+    for prof in profs:
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ranges = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in events if e.name in labels]
+        spans += len(ranges)
+        bounce = 0
+        for e in sorted(events, key=lambda e: e.time_range.start):
+            if e.name in labels:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3 / reps
+            busy += ms
+            if "wave_first_kernel" in e.name:
+                split["K10a"] += ms
+            elif "wave_bounce_kernel" in e.name:
+                bounce += 1
+                split[f"K10b b{bounce}"] += ms
+            else:
+                for label, start, end in ranges:
+                    if start <= e.time_range.start < end:
+                        split[label] += ms
+                        break
+    split["K10b"] = sum(split[f"K10b b{b + 1}"] for b in range(bounces))
+    split["other"] = busy - sum(split[k] for k in ("K10a", "K10b",
+                                                  *labels))
+    return {"device_ms": split, "device_busy_ms": busy,
+            "wall_ms": wall_ms,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "device_spans": spans}
 
 
 def wave_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
@@ -445,16 +584,14 @@ def raygen_state(size: int, device="cuda") -> SimpleNamespace:
         tile_order=tris_kernel.tile_chunk_order(packed, pay0, th * tw))
 
 
-def _bounce_ms(st, n_bounces: int, reps: int, track_idx: bool = False):
-    """Mean ms of one K3 (K10b with track_idx) launch from ``st``'s stream
-    state, each launch on a fresh copy (the kernel updates in place)."""
+def _bounce_ms(st, n_bounces: int, reps: int):
+    """Mean ms of one K3 launch from ``st``'s stream state, each launch on
+    a fresh copy (the kernel updates in place)."""
     bufs = iter([(st.pay0.clone(), st.state0.clone(), st.active0.clone())
                  for _ in range(reps + 1)])
-    kw = dict(n_bounces=n_bounces, th=st.th, tw=st.tw)
-    if track_idx:
-        kw["track_idx"] = True
     return _event_ms(lambda: tris_kernel.wave_bounce(
-        st.packed, st.tile_order, *next(bufs), st.flags, **kw), reps)
+        st.packed, st.tile_order, *next(bufs), st.flags, n_bounces=n_bounces,
+        th=st.th, tw=st.tw), reps)
 
 
 def _wave_ms(make_scene, size: int, bounces_fused, reps: int) -> dict:
@@ -514,33 +651,116 @@ def record_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
         tile_order=tris_kernel.tile_chunk_order(packed, pay0, th * tw))
 
 
-def _record_wave_ms(size: int, reps: int) -> dict:
-    """K10a, then K10b, on lucy (``record_state``)."""
-    st = record_state(scenes.scene_lucy, size)
-    return {"K10a": _event_ms(lambda: tris_kernel.wave_first(
-                st.packed, st.order, st.cam_row, st.times, 0, st.flags,
-                **st.first_kw), reps),
-            "K10b": _bounce_ms(st, 1, reps, track_idx=True)}
+def _record_first_ms(make_scene, size: int, reps: int) -> float:
+    """K10a by events (``record_state``), as the rows before the profiler's
+    reads of a record (``_recorder_ms``) were taken."""
+    st = record_state(make_scene, size)
+    return _event_ms(lambda: tris_kernel.wave_first(
+        st.packed, st.order, st.cam_row, st.times, 0, st.flags,
+        **st.first_kw), reps)
 
 
-def _profiled_ms(fn, reps: int, kernel: str) -> float:
+def _recorder_ms(make_scene, size: int, reps: int) -> dict:
+    """K10a and each K10b launch of the recorder's own record (one frame at
+    size x size, the scene's bounces) as the glue launches them, from the
+    profiler's device time of each kernel over ``reps`` records, and the
+    K10b launches' sum."""
+    from torch.profiler import ProfilerActivity
+
+    st = record_state(make_scene, size)
+    cfg = st.sd.config
+    kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+              bounces=cfg.bounces, flags=st.flags, th=st.th, tw=st.tw,
+              normalize_defocus_dir=cfg.normalize_defocus_dir)
+
+    def run():
+        return tris_kernel.render_color_tris_wave_record(
+            st.packed, st.cam_row, 1000, **kw)
+
+    per = cfg.bounces - 1
+    first, bounce = [], []
+    for prof in _record_profiles(run, reps, per, (ProfilerActivity.CUDA,)):
+        kernels = _device_events(prof, ("wave_first_kernel",
+                                        "wave_bounce_kernel"))
+        first += [ms for name, ms in kernels if "wave_first_kernel" in name]
+        bounce.append([ms for name, ms in kernels
+                       if "wave_bounce_kernel" in name])
+    out = {"K10a (record)": sum(first) / reps}
+    for b in range(per):
+        out[f"K10b b{b + 1} (record)"] = sum(r[b] for r in bounce) / reps
+    out["K10b sum (record)"] = sum(map(sum, bounce)) / reps
+    return out
+
+
+def _record_profiles(run, reps: int, bounces: int, activities):
+    """torch.profiler sessions of ``reps`` calls of ``run`` (a wave record
+    of 1 + ``bounces`` launches), one call a session, after one unprofiled;
+    a session whose K10a and K10b launches the profiler did not all see is
+    run again (up to ``reps`` times in all)."""
+    from torch.profiler import profile
+
+    run()
+    torch.cuda.synchronize()
+    out, retries = [], 0
+    while len(out) < reps:
+        with profile(activities=list(activities)) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = _device_events(prof, ("wave_first_kernel",
+                                        "wave_bounce_kernel"))
+        if len(kernels) == 1 + bounces:
+            out.append(prof)
+        elif retries == reps:
+            raise SystemExit(f"profiler saw {len(kernels)} of the "
+                             f"{1 + bounces} launches of a record, "
+                             f"{retries} times")
+        else:
+            retries += 1
+    return out
+
+
+PROFILE_SESSIONS = 4
+
+
+def _profiled_ms(fn, reps: int, kernel: str, prepare=None) -> float:
     """Mean device ms of one launch of the kernel whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls of fn after one:
-    the kernel alone, without the wrapper's work on the host or the card."""
+    the kernel alone, without the wrapper's work on the host or the card.
+    The profiler now and then misses a launch of a session; such a session
+    is run again, up to ``PROFILE_SESSIONS`` sessions in all, and if none
+    saw every launch the calls are timed by CUDA events instead (the
+    wrapper's own work on the card included; said on stderr).  ``prepare``
+    (if given) runs before the first call and before each session, outside
+    it: fresh inputs for a kernel that updates its own in place."""
     from torch.profiler import ProfilerActivity, profile
 
+    prepare = prepare or (lambda: None)
+    prepare()
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for session in range(PROFILE_SESSIONS):
+        prepare()
         torch.cuda.synchronize()
-    hits = [ev for ev in prof.key_averages() if kernel in ev.key]
-    count = sum(ev.count for ev in hits)
-    if count != reps:
-        raise SystemExit(f"profiler saw {count} launches of {kernel}, "
-                         f"expected {reps}")
-    return sum(ev.self_device_time_total for ev in hits) / count / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [ev for ev in prof.key_averages() if kernel in ev.key]
+        count = sum(ev.count for ev in hits)
+        if count == reps:
+            return sum(ev.self_device_time_total for ev in hits) / count / 1e3
+        print(f"profiler saw {count} launches of {kernel} in session "
+              f"{session + 1}, expected {reps}", file=sys.stderr)
+    print(f"{kernel}: timed by CUDA events", file=sys.stderr)
+    prepare()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -592,15 +812,17 @@ KERNEL_GROUPS = ("all", "wave", "frame", "depth")
 def kernels(group: str = "all", reps: int = 20):
     """ms per launch of the hand-written render and record kernels over
     ``reps`` launches after one, at ``chip_smoke.py``'s shapes: by CUDA
-    events around the wrappers (K2, K3, K10a, K10b), from a CUDA graph of 50
+    events around the wrappers (K2, K3, K10a), from a CUDA graph of 50
     (K5, K8), or the profiler's device time of the kernel (K6, K7, K9: an
     older wrapper of theirs waits on a copy to the card).  ``wave``: K2 and
     K3 (2 and 1 fused bounces) on Suzanne 128x128 and 512x512, K3 (2
     bounces) on K4's primary rays, K2 and K3 (1 bounce) on dragon 512x512,
-    K10a and K10b on lucy 512x512.  ``frame``: K5 and K8 on sphere_simple
-    512x512 b10, K6 on cover 1280x720 b10, K7 on Suzanne 512x512 b8, K9 on
-    Suzanne 1920x1080 b5.  Also each kernel's registers and shared memory
-    from the build."""
+    K10a on lucy and dragon 512x512, and the profiler's device time of
+    K10a and of each K10b launch of a whole record there
+    (``_recorder_ms``).  ``frame``: K5 and
+    K8 on sphere_simple 512x512 b10, K6 on cover 1280x720 b10, K7 on
+    Suzanne 512x512 b8, K9 on Suzanne 1920x1080 b5.  Also each kernel's
+    registers and shared memory from the build."""
     card = _card()
     ms = {}
     if group in ("all", "wave"):
@@ -612,8 +834,11 @@ def kernels(group: str = "all", reps: int = 20):
                 ms[f"{k} {name}"] = v
         ms["K3 b2 suzanne 512 from K4"] = _bounce_ms(raygen_state(512), 2,
                                                      reps)
-        for k, v in _record_wave_ms(512, reps).items():
-            ms[f"{k} lucy 512"] = v
+        for name, make in (("lucy 512", scenes.scene_lucy),
+                           ("dragon 512", scenes.scene_dragon)):
+            ms[f"K10a {name}"] = _record_first_ms(make, 512, reps)
+            for k, v in _recorder_ms(make, 512, reps).items():
+                ms[f"{k} {name}"] = v
     if group == "depth":
         # the marginal cost of a bounce: K6 and K7 cut to fewer bounces
         for b in (1, 2, 4, 10):
@@ -654,6 +879,97 @@ def _occupancy_counts(active, scans: int) -> dict:
             "pairs_per_pixel": scans / n}
 
 
+def _group_counts(packed, carry) -> dict:
+    """What the wave kernels' group test leaves of one bounce's box tests
+    (``tris_kernel.group_box_tests``): per live ray, the group boxes tested
+    and entered and the chunk boxes still tested."""
+    _, o, d, _, active = carry
+    tested, entered, chunk_tests = tris_kernel.group_box_tests(
+        packed, o, d, active > 0)
+    live = max(1, int((active > 0).sum()))
+    return {"groups_tested": tested / live,
+            "groups_entered_per_live_ray": entered / live,
+            "chunk_tests_per_live_ray": chunk_tests / live}
+
+
+def _record_occupancy(name: str, device="cuda"):
+    """Per bounce of one record of the named fit (the sorted-stream
+    recorder, ``render_color_tris_wave_record``, through the plain versions
+    on the card, at the fit's size and tile, over the recorder's tables):
+    the tiles with a live ray, per such tile the chunks some live ray
+    enters at t >= 0 (the kernel's candidates: staged and voted on) and the
+    chunks it scans, the heaviest tile's scans, the box tests' share of the
+    box and pair operations (24 and 46 each) without the group boxes
+    (every ray of a tile with a live ray against every chunk) and with
+    them, and what the group boxes leave of the box tests
+    (``_group_counts``); and the launch's bound as ``chip_smoke.py``
+    computes it (``bound``: these counts, with the group boxes, plus K10a's
+    raygen; the bytes of the tables, the visit orders and the planes read
+    and written once)."""
+    scene, camera, config, _ = fit_setup(name, device)
+    geo = dispatch.frame_geometry(config)
+    packed = tris_kernel.pack_tri_table(scene)
+    table_bytes = sum(t.numel() * 4 for t in (packed.tab, packed.mats,
+                                              packed.chunks, packed.groups)
+                      if t is not None)
+    rows = []
+    plain = tris_kernel.trace_bounce
+
+    def counted(packed_, order, carry, flags, **kw):
+        kw.pop("scan_counts", None)
+        counts = []
+        out = plain(packed_, order, carry, flags, scan_counts=counts, **kw)
+        (scans, boxes, visits, cand, tile_scans, heaviest,
+         every_box) = counts[0]
+        tiles = visits // packed_.n_chunks
+        pair_ops = scans * tris_kernel.CHUNK * FLOPS_PER_PAIR
+        rays = carry[4].numel()
+        first = not rows
+        # K10a: one visit order, raygen, 14 words a ray written; K10b: a
+        # visit order a tile launched, 11 words a ray read and 13 written
+        nbytes = table_bytes + 4 * (
+            packed_.n_chunks + 14 * rays if first
+            else carry[4].shape[0] * packed_.n_chunks + 24 * rays)
+        ms, by, _ = bound(counts, nbytes, extra_flops=(
+            rays * FLOPS_PER_RAYGEN if first else 0))
+        row = {"live_tiles": tiles, "tiles": carry[4].shape[0],
+               "live_rays": int((carry[4] > 0).sum()),
+               "candidates_per_live_tile": cand / max(1, tiles),
+               "scans_per_live_tile": tile_scans / max(1, tiles),
+               "heaviest_tile_scans": heaviest,
+               "ray_chunk_scans": scans, "box_tests": every_box,
+               "box_share": every_box * FLOPS_PER_BOX / max(
+                   1, every_box * FLOPS_PER_BOX + pair_ops),
+               "bound_ms": ms, "bound_by": by}
+        if packed_.groups is not None:
+            row |= _group_counts(packed_, carry)
+            row["box_tests_with_groups"] = boxes
+            row["box_share_with_groups"] = boxes * FLOPS_PER_BOX / max(
+                1, boxes * FLOPS_PER_BOX + pair_ops)
+        rows.append(row)
+        return out
+
+    saved = (tris_kernel.trace_bounce, tris_kernel.wave_first,
+             tris_kernel.wave_bounce)
+    tris_kernel.trace_bounce = counted
+    tris_kernel.wave_first = tris_kernel.wave_first_plain
+    tris_kernel.wave_bounce = tris_kernel.wave_bounce_plain
+    try:
+        tris_kernel.render_color_tris_wave_record(
+            packed, dispatch.pack_camera(camera), 1000,
+            bounces=config.bounces, flags=dispatch.trace_flags(config),
+            normalize_defocus_dir=config.normalize_defocus_dir,
+            sky_from_final_dir=config.sky_from_final_dir, **geo)
+    finally:
+        (tris_kernel.trace_bounce, tris_kernel.wave_first,
+         tris_kernel.wave_bounce) = saved
+    print(json.dumps({
+        "measure": "occupancy", "fit": name, "card": _card(),
+        "size": [config.width, config.height],
+        "tile": [geo["th"], geo["tw"]], "n_chunks": packed.n_chunks,
+        "bounces": rows}), flush=True)
+
+
 def occupancy(path: str = "sphere_cover", device="cuda"):
     """Per bounce of one frame of the named path (its whole-frame kernel's
     plain version, at the path's size and the default tile): the share of
@@ -661,7 +977,13 @@ def occupancy(path: str = "sphere_cover", device="cuda"):
     the warps the live rays would fill packed, and the (ray, primitive)
     pairs a pixel; then the pairs weighted by one over the lane occupancy,
     as the warps issue them with a thread a ray, unpacked and packed,
-    against the pairs."""
+    against the pairs.  A fit of the sorted-stream recorder (``lucy_512``,
+    ``dragon_512``) gives ``_record_occupancy``'s counts instead."""
+    if path in FITS:
+        if FITS[path].kernel != "wave_record":
+            raise SystemExit(f"occupancy: {path} does not record through "
+                             "the sorted stream (lucy_512, dragon_512)")
+        return _record_occupancy(path, device)
     p = PATHS[path]
     which = set(p.launches)
     if which not in ({"spheres_chunked"}, {"tris_mono"}):
@@ -780,7 +1102,8 @@ def main(argv=None) -> int:
             "lookup": lookup, "record": record, "oracle": oracle,
             "kernels": kernels, "occupancy": occupancy}
     names = (FITS if argv[:1] in (["fit"], ["lookup"], ["record"])
-             else KERNEL_GROUPS if argv[:1] == ["kernels"] else PATHS)
+             else KERNEL_GROUPS if argv[:1] == ["kernels"]
+             else {**PATHS, **FITS} if argv[:1] == ["occupancy"] else PATHS)
     if (len(argv) not in (1, 2) or argv[0] not in what
             or (len(argv) == 2 and argv[1] not in names)):
         print(__doc__, file=sys.stderr)

@@ -596,3 +596,111 @@ def test_cuda_packed_kernels_equal_plain_across_samples_bitwise(kernel):
     for _ in range(8):
         assert _bit_equal(run(p, cam_row, TIME, **args), want)
     assert launches[kernel] == before + 8
+
+
+def _record_stream(name, size):
+    """The recorder's morton-sorted stream after K10a on ``name`` at size x
+    size (``measure.record_state``), its live rays and the tiles that hold
+    them."""
+    from rt_torch import measure
+
+    st = measure.record_state(getattr(tscenes, f"scene_{name}"), size,
+                              "cuda")
+    live = int(st.active0.sum())
+    return st, live, -(-live // (st.th * st.tw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,size", [("lucy", 512), ("lucy", 64),
+                                       ("dragon", 64)])
+def test_cuda_recorder_every_launch_equals_plain_bitwise(name, size):
+    """A whole record (K10a, then K10b before each of bounces 1-4 on the
+    live tiles of the sorted stream, at the lanes the launch picks: on an
+    H100 lucy 512x512's 1245, 187, 124 and 71 live tiles take 2, 4, 8 and
+    8, the 64x64 records' few tiles 8): each launch against its plain
+    version on copies of its inputs, and the record's planes against the
+    plain recorder's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = getattr(tscenes, f"scene_{name}")(size, size, device="cuda")
+    packed = ttk.pack_tri_table(sd.scene)
+    cam_row = tdispatch.pack_camera(sd.camera)
+    args = dict(height=size, width=size, height_pad=size, width_pad=size,
+                bounces=5, th=8, tw=16, normalize_defocus_dir=True,
+                flags=tdispatch.trace_flags(sd.config))
+    first, bounce = ttk.wave_first, ttk.wave_bounce
+    seen = []
+
+    def checked_first(*a, **kw):
+        k = first(*a, **kw)
+        for x, y in zip(k, ttk.wave_first_plain(*a, **kw)):
+            assert _bit_equal(x, y)
+        seen.append(0)
+        return k
+
+    def checked_bounce(packed_, order, pay, state, active, flags, **kw):
+        ins = pay.clone(), state.clone(), active.clone()
+        p = ttk.wave_bounce_plain(packed_, order, *ins, flags, **kw)
+        k = bounce(packed_, order, pay, state, active, flags, **kw)
+        for x, y in zip((pay, state, active, *k), (*ins, *p)):
+            assert _bit_equal(x, y)
+        seen.append(kw["live_tiles"])
+        return k
+
+    try:
+        ttk.wave_first, ttk.wave_bounce = checked_first, checked_bounce
+        color, idx, _ = ttk.render_color_tris_wave_record(packed, cam_row,
+                                                          TIME, **args)
+    finally:
+        ttk.wave_first, ttk.wave_bounce = first, bounce
+    assert len(seen) == 5 and all(0 < t < size * size // 128
+                                  for t in seen[1:])
+    ttk.wave_first, ttk.wave_bounce = ttk.wave_first_plain, \
+        ttk.wave_bounce_plain
+    try:
+        p_color, p_idx, _ = ttk.render_color_tris_wave_record(
+            packed, cam_row, TIME, **args)
+    finally:
+        ttk.wave_first, ttk.wave_bounce = first, bounce
+    assert _bit_equal(color, p_color) and torch.equal(idx, p_idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lucy", "dragon"])
+def test_cuda_group_boxes_change_no_bit(name):
+    """K10a, and K2 over the render path's table (``split_big``), with
+    their group boxes and without them (chunk boxes only): every plane the
+    same bits.  Then K10b on a stream whose live rays fill only its first 3
+    tiles (the others died), launched on those 3 and on the whole stream:
+    the same planes, -1 past the 3 tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    st, _, _ = _record_stream(name, 64)
+    assert st.packed.groups is not None
+    k = ttk.wave_first(st.packed._replace(groups=None), st.order, st.cam_row,
+                       st.times, 0, st.flags, **st.first_kw)
+    for a, b in zip(st.first, k):
+        assert _bit_equal(a, b)
+    render = tdispatch.pack_scene(st.sd.scene)
+    assert render.groups is not None
+    kw = {k_: v for k_, v in st.first_kw.items() if k_ != "track_idx"}
+    order = ttk.eye_chunk_order(render, st.cam_row)
+    k = [ttk.wave_first(packed, order, st.cam_row, st.times, 0, st.flags,
+                        **kw) for packed in (render,
+                                             render._replace(groups=None))]
+    for a, b in zip(*k):
+        assert _bit_equal(a, b)
+    active = st.active0.clone()
+    active[3 * 128 - 5:] = 0
+    outs = []
+    for live_tiles, order in ((3, st.tile_order[:3 * st.packed.n_chunks]),
+                              (None, st.tile_order)):
+        ins = st.pay0.clone(), st.state0.clone(), active.clone()
+        out = ttk.wave_bounce(st.packed, order, *ins, st.flags, n_bounces=1,
+                              th=st.th, tw=st.tw, track_idx=True,
+                              live_tiles=live_tiles)
+        outs.append((*ins, *out))
+    for a, b in zip(*outs):
+        assert _bit_equal(a, b)
+    assert (outs[0][4][0, :3 * 128 - 5] >= 0).any()
+    assert (outs[0][4][:, 3 * 128:] == -1).all()
