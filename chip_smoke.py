@@ -20,6 +20,9 @@ ProgressiveRenderer -> draw_frames``:
   wave_bounce from bounce 0);
 - scene 7 (dragon) 512x512, 5 bounces (the large-scene branch);
 - Suzanne 512x512, 8 bounces through the whole-frame kernel (tris_mono);
+- the JAX package's BENCH_CONFIGS config1 (rtiow_one_sphere 400x225, 16
+  samples a pixel, 4 bounces) and config2 (rtiow_three_spheres 800x450, 64
+  samples, 10 bounces): one spheres launch a frame;
 
 its training paths (``rt_torch.measure.FITS``) through ``fit_replay``:
 
@@ -40,6 +43,10 @@ once, the ``tests/golden_tris`` images, and one frame each of scene 1 and
 Suzanne timed.  Every phase prints one JSON line; any failure raises, so the
 exit code is non-zero and no result line is printed.  Needs no network and
 starts no process that outlives it.
+
+The flat sphere kernels (spheres, spheres_record) are also held on frames
+padded to the tile (rtiow_one_sphere's 225 rows to 232) and replayed twice
+from a CUDA graph: their pixel counter is set to 0 inside each launch.
 
 The recorder's kernels are held at every launch of a whole record: lucy at
 512x512 (wave_record_bounce's entry in the last line is the mean of its
@@ -72,9 +79,9 @@ import numpy as np  # noqa: E402
 
 from rt_torch import cli, goldens, measure  # noqa: E402
 from rt_torch.measure import (  # noqa: E402
-    FLOPS_PER_PAIR, FLOPS_PER_RAYGEN, FLOPS_PER_SPHERE_PAIR,
-    FLOPS_PER_WOOP_PAIR, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_F32_FLOPS,
-    bound)
+    FLOPS_PER_PAIR, FLOPS_PER_RAYGEN, FLOPS_PER_SPHERE_HIT,
+    FLOPS_PER_SPHERE_PAIR, FLOPS_PER_WOOP_PAIR, PEAK_BF16_FLOPS,
+    PEAK_BYTES_PER_S, PEAK_F32_FLOPS, bound)
 from rt_torch.kernels import (_build, dispatch, sphere_kernel,  # noqa: E402
                               tris_kernel)
 from rt_torch.scene import scenes  # noqa: E402
@@ -266,6 +273,8 @@ def _require_bit_equal(records):
                            "color_differs_from_tris_mono",
                            "color_differs_from_spheres")
                if r.get(k, 0.0) != 0.0]
+        if r.get("graph_replays_equal") is False:
+            bad.append("graph_replays_equal")
         if bad:
             raise SystemExit(f"kernel {r['name']} disagrees with its plain "
                              f"version ({bad}): {r}")
@@ -312,23 +321,45 @@ def compare_raygen(size: int, reps: int):
     return rec
 
 
+def _graph_replays_equal(run, want) -> bool:
+    """One launch captured in a CUDA graph, the graph replayed twice (its
+    outputs zeroed before each): does every replay give ``want``?  The flat
+    sphere kernels' pixel counter must be set to 0 inside each replay."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    outs = out if isinstance(out, tuple) else (out,)
+    equal = True
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        equal &= all(torch.equal(o.view(torch.int32), w.view(torch.int32))
+                     for o, w in zip(outs, want))
+    return equal
+
+
 def compare_spheres(make_scene, width: int, height: int, spp: int,
-                    reps: int):
+                    reps: int, bounces: int | None = None):
     """K5 or K6 (as the dispatch chooses for the scene) on one frame at the
-    default tile against its plain version; K6 also against the flat plain
-    scan over the same Morton-ordered table."""
+    default tile, padded to it as the dispatch pads it, against its plain
+    version; K5 also replayed from a CUDA graph, K6 also against the flat
+    plain scan over the same Morton-ordered table."""
     sd = make_scene(width, height, device=DEV)
-    cfg = dataclasses.replace(sd.config, samples_per_frame=spp)
+    cfg = dataclasses.replace(sd.config, samples_per_frame=spp,
+                              bounces=bounces or sd.config.bounces,
+                              tile=dispatch.DEFAULT_TILE)
     packed = dispatch.pack_scene(sd.scene, cfg)
     cam_row = dispatch.pack_camera(sd.camera)
-    th, tw = dispatch.DEFAULT_TILE
-    kw = dict(height=height, width=width, height_pad=height, width_pad=width,
-              bounces=cfg.bounces,
+    geo = dispatch.frame_geometry(cfg)
+    th, tw = geo.pop("th"), geo.pop("tw")
+    kw = dict(bounces=cfg.bounces,
               normalize_defocus_dir=cfg.normalize_defocus_dir,
-              flags=dispatch.trace_flags(cfg), spp=spp)
+              flags=dispatch.trace_flags(cfg), spp=spp, **geo)
     counts = []
     nbytes = (packed.tab.numel() + packed.kinds.numel()) * 4 \
-        + 20 * 4 + 3 * width * height * 4
+        + 20 * 4 + 3 * geo["width_pad"] * geo["height_pad"] * 4
     if packed.chunks is None:
         name, line = "spheres", 129
         run = lambda: sphere_kernel.render_color_spheres(
@@ -350,9 +381,13 @@ def compare_spheres(make_scene, width: int, height: int, spp: int,
     rec = dict(name=name, route="cuda",
                source="rt_torch/kernels/csrc/spheres.cu",
                replaces=f"rt/kernels/sphere_kernel.py:{line}",
-               case=sd.name, size=[width, height], spp=spp, tile=[th, tw],
-               n_spheres=packed.n, max_abs_err=err, rays_differ=frac,
-               plain_ms=plain_ms, library_ms=None)
+               case=sd.name, size=[width, height],
+               padded=[geo["width_pad"], geo["height_pad"]], spp=spp,
+               bounces=cfg.bounces, tile=[th, tw], n_spheres=packed.n,
+               max_abs_err=err, rays_differ=frac, plain_ms=plain_ms,
+               library_ms=None)
+    if packed.chunks is None:
+        rec["graph_replays_equal"] = _graph_replays_equal(run, (p_out,))
     if packed.chunks is not None:
         flat = sphere_kernel.render_color_spheres_plain(
             packed.tab, packed.kinds, cam_row, 1000, n_spheres=packed.n, **kw)
@@ -365,10 +400,13 @@ def compare_spheres(make_scene, width: int, height: int, spp: int,
         # around the wrapper (the kernel and its chunk order) read it
         rec["ms"] = (_timed_graph(run, reps) if packed.chunks is None
                      else rec["wrapper_ms"])
-        per_ray = width * height * FLOPS_PER_RAYGEN
+        # raygen a padded pixel; the flat scan's counts also give its hits,
+        # each resolved and scattered
+        per_ray = geo["width_pad"] * geo["height_pad"] * FLOPS_PER_RAYGEN
+        hits = sum(c[2] for c in counts if len(c) > 2)
         rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
             counts, nbytes, per_pair=FLOPS_PER_SPHERE_PAIR,
-            extra_flops=per_ray)
+            extra_flops=per_ray + hits * FLOPS_PER_SPHERE_HIT)
     return rec
 
 
@@ -488,16 +526,20 @@ def compare_spheres_record(make_scene, width: int, height: int, reps: int):
                         index_entries_differ=float(
                             (idx != p_idx).float().mean()),
                         color_differs_from_spheres=_diff(
-                            _planes(color), _planes(render))[1])
+                            _planes(color), _planes(render))[1],
+                        graph_replays_equal=_graph_replays_equal(
+                            run, (p_color, p_idx)))
     if reps:
         rec["wrapper_ms"] = _timed(lambda i: run(), reps)
         rec["ms"] = _timed_graph(run, reps)
         npix = width * height
         nbytes = (tab.numel() + kinds.numel()) * 4 + 20 * 4 \
             + (3 + cfg.bounces) * npix * 4
+        hits = sum(c[2] for c in counts)
         rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
             counts, nbytes, per_pair=FLOPS_PER_SPHERE_PAIR,
-            extra_flops=npix * FLOPS_PER_RAYGEN)
+            extra_flops=npix * FLOPS_PER_RAYGEN
+            + hits * FLOPS_PER_SPHERE_HIT)
     return rec
 
 
@@ -850,6 +892,13 @@ def phase_kernels_new():
         compare_raygen(KERNEL_SIZE, reps=50),
         compare_spheres(scenes.scene_sphere_simple, 512, 512, 1, reps=50),
         compare_spheres(scenes.scene_sphere_simple, 512, 512, 4, reps=0),
+        # the JAX package's BENCH_CONFIGS config1 and config2 (config2 at 8
+        # of its 64 samples: the plain version loops over them); 225 rows
+        # padded to 232
+        compare_spheres(scenes.scene_rtiow_one_sphere, 400, 225, 16,
+                        reps=10, bounces=4),
+        compare_spheres(scenes.scene_rtiow_three_spheres, 800, 450, 8,
+                        reps=5, bounces=10),
         compare_spheres(scenes.scene_sphere_cover, 1280, 720, 1, reps=5),
         compare_bounce_from_raygen(KERNEL_SIZE, reps=5),
     ]

@@ -1,7 +1,8 @@
 """Headless CLI of the port — counterpart of ``rt/cli.py``.
 
 Usage:
-    python -m rt_torch.cli [ID] [--scene ID] --frames N --size WxH -o out.ppm
+    python -m rt_torch.cli [ID] [--scene ID | --scene-name NAME] --frames N
+                           --size WxH -o out.ppm
                            [--spp S] [--bounces B] [--seed N] [--device cpu]
                            [--mono] [--oracle] [--time-step MS]
                            [--start-time T]
@@ -10,7 +11,9 @@ Renders a scene (1 sphere_simple, 2 sphere_globe, 3 quad, 4 cube, 5 suzanne,
 6 lucy, 7 dragon, 8 sphere_cover; another id gives scene 1) progressively
 and writes a PPM.  The id is positional, as in the reference app;
 ``--scene`` overrides it, and an absent or unparsable id picks a random
-scene in 1..7.  The default device is ``cuda``: the hand-written kernels are
+scene in 1..7.  ``--scene-name`` names any scene of ``rt_torch.scene.scenes``
+instead (``rtiow_three_spheres``: the BENCH_CONFIGS config2 scene).  The
+default device is ``cuda``: the hand-written kernels are
 compiled at first use.  ``--device cpu`` runs their plain PyTorch versions
 (slow; meant for small sizes).  ``--oracle`` renders through the oracle
 backend instead of the kernels: plain tensor code, every sphere or the BVH
@@ -39,6 +42,10 @@ def parse_args(argv=None):
                         "number, like the reference)")
     p.add_argument("--scene", dest="scene_opt", type=int, default=None,
                    help="scene id; overrides the positional one")
+    p.add_argument("--scene-name", default=None,
+                   help="a scene by its name in rt_torch.scene.scenes "
+                        "(rtiow_one_sphere, rtiow_three_spheres, "
+                        "test_scene_complex, ...); overrides the id")
     p.add_argument("--frames", type=int, default=100)
     p.add_argument("--size", default="512x512")
     p.add_argument("-o", "--output", default="out.ppm")
@@ -82,7 +89,13 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     scene_id = resolve_scene_id(args)
     w, h = (int(v) for v in args.size.lower().split("x"))
-    if scene_id == 2:
+    if args.scene_name is not None:
+        make = getattr(scenes, args.scene_name, None) or getattr(
+            scenes, f"scene_{args.scene_name}", None)
+        if make is None:
+            raise SystemExit(f"no scene named {args.scene_name!r}")
+        sd = make(w, h, device=args.device)
+    elif scene_id == 2:
         sd = scenes.scene_sphere_globe(w, h, device=args.device,
                                        seed=args.seed)
     else:
@@ -100,7 +113,8 @@ def main(argv=None) -> int:
         sd = dataclasses.replace(sd, config=dataclasses.replace(
             sd.config, backend="oracle"))
     spp = sd.config.samples_per_frame
-    print(f"scene {scene_id} ({sd.name}), {w}x{h}, {args.frames} frames, "
+    print(f"scene {args.scene_name or scene_id} ({sd.name}), {w}x{h}, "
+          f"{args.frames} frames, "
           f"bounces={sd.config.bounces}, spp={spp}, device={args.device}, "
           f"backend={sd.config.backend}",
           file=sys.stderr)

@@ -58,7 +58,7 @@ from rt_torch.scene import scenes
 
 
 class Path(NamedTuple):
-    scene_id: int
+    scene_id: int | str  # an id of scenes.SCENE_BY_ID, or a scenes function
     width: int
     height: int
     overrides: dict     # RenderConfig fields set over the scene's own
@@ -85,6 +85,14 @@ PATHS = {
     # the whole frame in one launch: no stream, no sort
     "suzanne_mono": Path(5, 512, 512, dict(bounces=8, tris_path="mono"),
                          {"tris_mono": 1}, 32),
+    # the JAX package's BENCH_CONFIGS config1 and config2 at their own
+    # sizes (tools/bench_configs.py): K5 at 16 and 64 samples a pixel
+    "rtiow_one_sphere": Path("scene_rtiow_one_sphere", 400, 225,
+                             dict(bounces=4, samples_per_frame=16),
+                             {"spheres": 1}, 64),
+    "rtiow_three_spheres": Path("scene_rtiow_three_spheres", 800, 450,
+                                dict(bounces=10, samples_per_frame=64),
+                                {"spheres": 1}, 8),
 }
 
 
@@ -137,6 +145,13 @@ FLOPS_PER_BOX = 24
 # + 2*dot + r*r + subtract + b*b + 4a*cc + subtract + sqrt + negate
 # + subtract + divide
 FLOPS_PER_SPHERE_PAIR = 23
+# a hit of the sphere kernels, resolved and scattered: resolve_hit
+# (spheres.cu: the point 6, the normal 6, the face test 6, the attenuation
+# 6) and scatter's Lambertian arm (rt_device.cuh: 3 RNG floats 6, the
+# hemisphere's normalisation 9, its side 6) — the least of the three arms
+# (metal adds a reflection and a normalisation, a dielectric ~37-60 of its
+# own), so a bound that counts it stays a lower bound
+FLOPS_PER_SPHERE_HIT = 45
 # one primary ray (rt_device.cuh generate_ray): 5 RNG floats (convert and
 # divide), 2 two-vector and 2 four-vector normalisations, uv, make_ray,
 # defocus
@@ -169,14 +184,23 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def scene_def(path: str, device="cuda", **config):
+    """The named path's SceneDef at its size, with its config overrides
+    and ``config`` set over the scene's own."""
+    p = PATHS[path]
+    if isinstance(p.scene_id, str):
+        sd = getattr(scenes, p.scene_id)(p.width, p.height, device=device)
+    else:
+        sd = scenes.build_scene(p.scene_id, p.width, p.height, device=device)
+    return dataclasses.replace(sd, config=dataclasses.replace(
+        sd.config, **{**p.overrides, **config}))
+
+
 def renderer(path: str, tile=None, device="cuda",
              backend: str = "kernels") -> ProgressiveRenderer:
     """A ProgressiveRenderer of the named path's scene, size and config."""
-    p = PATHS[path]
-    sd = scenes.build_scene(p.scene_id, p.width, p.height, device=device)
-    sd = dataclasses.replace(sd, config=dataclasses.replace(
-        sd.config, tile=tile, backend=backend, **p.overrides))
-    return ProgressiveRenderer(sd, device=device)
+    return ProgressiveRenderer(
+        scene_def(path, device, tile=tile, backend=backend), device=device)
 
 
 def _segments_per_frame(r: ProgressiveRenderer) -> int:
@@ -777,24 +801,29 @@ def _graph_ms(fn, reps: int) -> float:
     return _event_ms(graph.replay, 3) / reps
 
 
+def sphere_frame_args(path: str, device="cuda", **config):
+    """(packed tables, camera row, keyword arguments) of one frame of the
+    named sphere path's kernel at the default tile, the frame padded to
+    it as the dispatch pads it; ``config`` set over the path's."""
+    sd = scene_def(path, device, tile=dispatch.DEFAULT_TILE, **config)
+    cfg = sd.config
+    packed = dispatch.pack_scene(sd.scene, cfg)
+    kw = dict(bounces=cfg.bounces, spp=cfg.samples_per_frame,
+              normalize_defocus_dir=cfg.normalize_defocus_dir,
+              flags=dispatch.trace_flags(cfg), **dispatch.frame_geometry(cfg))
+    return packed, dispatch.pack_camera(sd.camera), kw
+
+
 def _sphere_ms(path: str, reps: int, bounces: int | None = None) -> float:
     """K5 (a CUDA graph), K6 (the profiler's device time) or, with path
     ``"record"``, K8 (a graph) on the named sphere path's frame at the
     default tile."""
     record_ = path == "record"
-    p = PATHS["sphere_simple" if record_ else path]
-    sd = scenes.build_scene(p.scene_id, p.width, p.height, device="cuda")
-    cfg = dataclasses.replace(sd.config, **p.overrides)
-    if bounces:
-        cfg = dataclasses.replace(cfg, bounces=bounces)
-    packed = dispatch.pack_scene(sd.scene, cfg)
-    th, tw = dispatch.DEFAULT_TILE
-    kw = dict(height=p.height, width=p.width, height_pad=p.height,
-              width_pad=p.width, bounces=cfg.bounces, th=th, tw=tw,
-              normalize_defocus_dir=cfg.normalize_defocus_dir,
-              flags=dispatch.trace_flags(cfg))
-    cam_row = dispatch.pack_camera(sd.camera)
+    packed, cam_row, kw = sphere_frame_args(
+        "sphere_simple" if record_ else path,
+        **({"bounces": bounces} if bounces else {}))
     if record_:
+        kw.pop("spp")
         return _graph_ms(lambda: sphere_kernel.render_color_spheres_record(
             packed.tab, packed.kinds, cam_row, 1000, n_spheres=packed.n,
             **kw), reps)
@@ -819,8 +848,10 @@ def kernels(group: str = "all", reps: int = 20):
     bounces) on K4's primary rays, K2 and K3 (1 bounce) on dragon 512x512,
     K10a on lucy and dragon 512x512, and the profiler's device time of
     K10a and of each K10b launch of a whole record there
-    (``_recorder_ms``).  ``frame``: K5 and
-    K8 on sphere_simple 512x512 b10, K6 on cover 1280x720 b10, K7 on
+    (``_recorder_ms``).  ``frame``: K5 on
+    sphere_simple 512x512 b10 and on the rtiow paths (400x225 spp 16 b4,
+    800x450 spp 64 b10, padded to the tile), K8 on sphere_simple 512x512
+    b10, K6 on cover 1280x720 b10, K7 on
     Suzanne 512x512 b8, K9 on Suzanne 1920x1080 b5.  Also each kernel's
     registers and shared memory from the build."""
     card = _card()
@@ -848,6 +879,10 @@ def kernels(group: str = "all", reps: int = 20):
             ms[f"K7 suzanne 512 b{b}"] = _mono_ms(512, 512, b, False, reps)
     if group in ("all", "frame"):
         ms["K5 sphere_simple 512 b10"] = _sphere_ms("sphere_simple", 50)
+        ms["K5 rtiow_one_sphere 400x225 spp16 b4"] = _sphere_ms(
+            "rtiow_one_sphere", 20)
+        ms["K5 rtiow_three_spheres 800x450 spp64 b10"] = _sphere_ms(
+            "rtiow_three_spheres", 5)
         ms["K8 sphere_simple 512 b10"] = _sphere_ms("record", 50)
         ms["K6 cover 1280x720 b10"] = _sphere_ms("sphere_cover", reps)
         ms["K7 suzanne 512 b8"] = _mono_ms(512, 512, 8, False, reps)
@@ -970,6 +1005,47 @@ def _record_occupancy(name: str, device="cuda"):
         "bounces": rows}), flush=True)
 
 
+REGEN_MINS = (1, 8, 16, 32)
+
+
+def _flat_occupancy(path: str, device="cuda"):
+    """The flat sphere kernel's lanes on one frame of the named path
+    (``sphere_schedule``, from its plain version at the path's size and
+    samples): segments (a bounce's scan, and the hit's resolve and
+    scatter) a sample per pixel, mean and most, and their histogram; the
+    warp turns and lane efficiency of the tile schedule (a thread a pixel
+    of an 8x16 tile) and of the persistent grid that the card holds
+    (``sphere_kernel.flat_lanes``) regenerating at 1, 8 (the kernel's),
+    16 and 32 waiting lanes, with each one's regenerations, refills and
+    factor of fewer turns."""
+    from rt_torch.kernels import sphere_schedule
+
+    card = _card()
+    packed, cam_row, kw = sphere_frame_args(path, device)
+    scans = sphere_schedule.sample_scans(
+        packed.tab, packed.kinds, cam_row, 1000, n_spheres=packed.n,
+        **kw).cpu()
+    th, tw = kw["th"], kw["tw"]
+    tile = sphere_schedule.tile_schedule(scans, th, tw)
+    lanes = sphere_kernel.flat_lanes(packed.n, kw["height_pad"]
+                                     * kw["width_pad"], device)
+    refill = {}
+    for k in REGEN_MINS:
+        r = sphere_schedule.refill_schedule(scans, lanes, th, tw, k)
+        refill[k] = r | {"fewer_turns": tile["warp_turns"] / r["warp_turns"]}
+    print(json.dumps({
+        "measure": "occupancy", "path": path, "card": card,
+        "size": [kw["width"], kw["height"]],
+        "padded": [kw["width_pad"], kw["height_pad"]], "spp": kw["spp"],
+        "bounces": kw["bounces"], "n_spheres": packed.n,
+        "segments_per_sample": {
+            "mean": float(scans.float().mean()), "most": int(scans.max()),
+            "histogram": torch.bincount(scans.reshape(-1).long()).tolist()},
+        "tile": [th, tw],
+        "tile_schedule": tile, "lanes": lanes,
+        "refill_schedule": refill}), flush=True)
+
+
 def occupancy(path: str = "sphere_cover", device="cuda"):
     """Per bounce of one frame of the named path (its whole-frame kernel's
     plain version, at the path's size and the default tile): the share of
@@ -979,16 +1055,19 @@ def occupancy(path: str = "sphere_cover", device="cuda"):
     as the warps issue them with a thread a ray, unpacked and packed,
     against the pairs.  A fit of the sorted-stream recorder (``lucy_512``,
     ``dragon_512``) gives ``_record_occupancy``'s counts instead."""
-    if path in FITS:
+    if path not in PATHS:
         if FITS[path].kernel != "wave_record":
             raise SystemExit(f"occupancy: {path} does not record through "
                              "the sorted stream (lucy_512, dragon_512)")
         return _record_occupancy(path, device)
     p = PATHS[path]
     which = set(p.launches)
+    if which == {"spheres"}:
+        return _flat_occupancy(path, device)
     if which not in ({"spheres_chunked"}, {"tris_mono"}):
-        raise SystemExit(f"occupancy: {path} runs no whole-frame tile kernel "
-                         "(sphere_cover, suzanne_mono)")
+        raise SystemExit(f"occupancy: {path} runs no whole-frame kernel "
+                         "(sphere_simple, rtiow_one_sphere, "
+                         "rtiow_three_spheres, sphere_cover, suzanne_mono)")
     card = _card()
     r = renderer(path, device=device)
     cfg = r.config

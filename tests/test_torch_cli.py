@@ -3,9 +3,10 @@
 number (``tests/test_cli.py::test_scene_id_fallback_semantics`` on
 ``rt.cli``; the reference's ``App::parse_args``, ``src/app.rs:36-41``)."""
 
+import dataclasses
 import random
 
-import dataclasses
+import pytest
 
 from rt import cli as jcli
 from rt_torch import cli
@@ -63,3 +64,27 @@ def test_bounces_override(tmp_path):
     r.draw_frames(1, 10)
     write_ppm(str(want), r.image)
     assert out.read_bytes() == want.read_bytes()
+
+
+def test_scene_name_renders_the_named_scene(tmp_path):
+    """``--scene-name`` renders a scene of ``rt_torch.scene.scenes`` that
+    has no id (the BENCH_CONFIGS config2 scene), with or without its
+    ``scene_`` prefix, as the renderer renders it; an unknown name stops
+    the CLI."""
+    outs = [tmp_path / "a.ppm", tmp_path / "b.ppm"]
+    for name, out in zip(("rtiow_three_spheres", "scene_rtiow_three_spheres"),
+                         outs):
+        assert cli.main(["--scene-name", name, "--spp", "2", "--bounces",
+                         "3", "--frames", "1", "--size", "16x8", "--device",
+                         "cpu", "-o", str(out)]) == 0
+    sd = scenes.scene_rtiow_three_spheres(16, 8, device="cpu")
+    sd = dataclasses.replace(sd, config=dataclasses.replace(
+        sd.config, bounces=3, samples_per_frame=2))
+    r = ProgressiveRenderer(sd, device="cpu")
+    r.set_time(1000)
+    r.draw_frames(1, 10)
+    want = tmp_path / "w.ppm"
+    write_ppm(str(want), r.image)
+    assert outs[0].read_bytes() == outs[1].read_bytes() == want.read_bytes()
+    with pytest.raises(SystemExit, match="no scene named"):
+        cli.main(["--scene-name", "nothing", "--device", "cpu"])

@@ -704,3 +704,94 @@ def test_cuda_group_boxes_change_no_bit(name):
         assert _bit_equal(a, b)
     assert (outs[0][4][0, :3 * 128 - 5] >= 0).any()
     assert (outs[0][4][:, 3 * 128:] == -1).all()
+
+
+def _flat_frame(make_scene, width, height, n=None):
+    """(tab, kinds, n, camera row, keyword arguments) of one frame of a
+    sphere scene for the flat kernels, padded to the default tile; n: the
+    live rows (the scene's own by default)."""
+    sd = getattr(tscenes, make_scene)(width, height, device="cuda")
+    tab, kinds, n_all = tdispatch.pack_spheres_table(sd.scene)
+    live = sd.config.n_active_spheres
+    n = n or (live if 0 < live < n_all else n_all)
+    args = _frame_args(sd, width, height, sd.config.bounces, (8, 16),
+                       n_spheres=n)
+    args.update(height_pad=-(-height // 8) * 8, width_pad=-(-width // 16) * 16)
+    return tab, kinds, n, tdispatch.pack_camera(sd.camera), args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make_scene,n,spp", [
+    ("scene_sphere_simple", 1, 3), ("scene_rtiow_one_sphere", 2, 16),
+    ("scene_rtiow_three_spheres", 4, 3), ("scene_sphere_simple", 7, 1),
+    ("scene_sphere_simple", 7, 16), ("test_scene_complex", 26, 3),
+    ("scene_sphere_globe", 36, 1), ("scene_sphere_cover", 484, 1)])
+def test_cuda_flat_kernels_equal_plain_with_padding_bitwise(make_scene, n,
+                                                           spp):
+    """K5 (up to FLAT_MAX_SPHERES rows) on the persistent grid whose lanes
+    take new pixels, and at one sample K8 (a thread a pixel of a tile),
+    color and index planes: a 100x70 frame padded to 112x72, every padded
+    pixel traced and written; 1 to 484 rows, 1 to 16 samples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tab, kinds, n_, cam_row, args = _flat_frame(make_scene, 100, 70, n)
+    assert n_ == n and (args["height_pad"], args["width_pad"]) == (72, 112)
+    if n <= tsk.FLAT_MAX_SPHERES:
+        before = tsk.LAUNCHES["spheres"]
+        k = tsk.render_color_spheres(tab, kinds, cam_row, TIME, spp=spp,
+                                     **args)
+        assert tsk.LAUNCHES["spheres"] == before + 1
+        args_ = {k_: v for k_, v in args.items() if k_ not in ("th", "tw")}
+        p = tsk.render_color_spheres_plain(tab, kinds, cam_row, TIME,
+                                           spp=spp, **args_)
+        assert _bit_equal(k, p) and float(p[:, 70:].abs().max()) > 0
+    if spp == 1:
+        before = tsk.LAUNCHES["spheres_record"]
+        color, idx = tsk.render_color_spheres_record(tab, kinds, cam_row,
+                                                     TIME, **args)
+        assert tsk.LAUNCHES["spheres_record"] == before + 1
+        args.pop("th"), args.pop("tw")
+        p_color, p_idx = tsk.render_color_spheres_record_plain(
+            tab, kinds, cam_row, TIME, **args)
+        assert _bit_equal(color, p_color) and torch.equal(idx, p_idx)
+        assert int(idx.min()) == -1 and int(idx.max()) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("record", [False, True])
+def test_cuda_flat_kernels_replayed_from_a_graph_equal_plain(record):
+    """One launch captured in a CUDA graph and the graph replayed twice:
+    K5's pixel counter is set to 0 inside each replay, so each gives the
+    plain version's image, not an empty frame; K8 (no counter) the same
+    with its index planes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tab, kinds, n, cam_row, args = _flat_frame("scene_rtiow_three_spheres",
+                                               100, 70)
+    spp = 1 if record else 4
+    if record:
+        run = lambda: tsk.render_color_spheres_record(  # noqa: E731
+            tab, kinds, cam_row, TIME, **args)
+    else:
+        run = lambda: tsk.render_color_spheres(  # noqa: E731
+            tab, kinds, cam_row, TIME, spp=spp, **args)
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    outs = out if record else (out,)
+    args.pop("th"), args.pop("tw")
+    if record:
+        want = tsk.render_color_spheres_record_plain(tab, kinds, cam_row,
+                                                     TIME, **args)
+    else:
+        want = (tsk.render_color_spheres_plain(tab, kinds, cam_row, TIME,
+                                               spp=spp, **args),)
+    for _ in range(2):
+        for o in outs:
+            o.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert _bit_equal(o, w)

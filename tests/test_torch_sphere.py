@@ -283,22 +283,33 @@ def test_sphere_bounce_chunked_equals_jax_eager_bitwise():
     assert 0 < int(carry[4].sum()) < 2 * TH * TW
 
 
-@pytest.mark.parametrize("make_scene,bounces,spp,sky_from_final_dir", [
-    ("scene_sphere_simple", 3, 1, False), ("scene_sphere_simple", 3, 3, False),
-    ("scene_sphere_simple", 3, 2, True),
+FLAT_CASES = [
+    ("scene_sphere_simple", 3, 1, False, 16),
+    ("scene_sphere_simple", 3, 3, False, 16),
+    ("scene_sphere_simple", 3, 2, True, 16),
     # the scenes whose goldens the port is furthest from, at full depth: the
     # port's image IS the JAX kernel's when each operation is rounded singly
-    ("scene_rtiow_three_spheres", 10, 1, False),
-    ("test_scene_dielectric", 10, 1, False)])
+    ("scene_rtiow_three_spheres", 10, 1, False, 16),
+    ("test_scene_dielectric", 10, 1, False, 16),
+    # BENCH_CONFIGS config1's scene and depth at 4 samples, 13 rows padded
+    # to the 8-row tile: the padding pixels are traced like any other
+    ("scene_rtiow_one_sphere", 4, 4, False, 13)]
+
+
+@pytest.mark.parametrize(
+    "make_scene,bounces,spp,sky_from_final_dir,height", FLAT_CASES,
+    ids=["-".join(map(str, c[:4])) + ("" if c[4] == 16 else f"-h{c[4]}")
+         for c in FLAT_CASES])
 def test_flat_kernel_plain_equals_jax_kernel_eager_bitwise(
-        make_scene, bounces, spp, sky_from_final_dir):
+        make_scene, bounces, spp, sky_from_final_dir, height):
     """The whole frame kernel: raygen, sample loop with the RNG state
-    carried across samples, bounce loop, sky, true divide by spp."""
-    tsd = getattr(tscenes, make_scene)(32, 16, device="cpu")
+    carried across samples, bounce loop, sky, true divide by spp; the
+    frame padded to 16 rows."""
+    tsd = getattr(tscenes, make_scene)(32, height, device="cpu")
     p = tdispatch.pack_scene(tsd.scene, tsd.config)
     flags = flags_of(tsd.config)
     cam_row = tdispatch.pack_camera(tsd.camera)
-    kw = dict(n_spheres=p.n, height=16, width=32, bounces=bounces,
+    kw = dict(n_spheres=p.n, height=height, width=32, bounces=bounces,
               spp=spp, sky_from_final_dir=sky_from_final_dir)
     want = U.eager_sphere_kernel(p.tab.numpy(), p.kinds.numpy(), cam_row,
                                  TIME, hp=16, wp=32, th=8, tw=32, flags=flags,

@@ -236,7 +236,8 @@ def test_bounce_schedules_of_the_new_paths():
 
 
 @pytest.mark.parametrize("path", ["suzanne", "sphere_simple", "sphere_cover",
-                                  "suzanne_spp4", "dragon", "suzanne_mono"])
+                                  "suzanne_spp4", "dragon", "suzanne_mono",
+                                  "rtiow_one_sphere", "rtiow_three_spheres"])
 def test_measured_paths_state_the_launches_their_schedule_gives(path):
     """``measure.PATHS`` is the one table of the port's paths; the launches
     it states per frame (what ``chip_smoke.py`` checks the counters
@@ -246,7 +247,8 @@ def test_measured_paths_state_the_launches_their_schedule_gives(path):
 
     assert sorted(measure.PATHS) == sorted(
         ["suzanne", "sphere_simple", "sphere_cover", "suzanne_spp4",
-         "dragon", "suzanne_mono"])
+         "dragon", "suzanne_mono", "rtiow_one_sphere",
+         "rtiow_three_spheres"])
     p = measure.PATHS[path]
     r = measure.renderer(path, device="cpu")
     cfg = r.config
