@@ -46,7 +46,7 @@ starts no process that outlives it.
 
 The flat sphere kernels (spheres, spheres_record) are also held on frames
 padded to the tile (rtiow_one_sphere's 225 rows to 232) and replayed twice
-from a CUDA graph: their pixel counter is set to 0 inside each launch.
+from a CUDA graph, each replay against the plain version's image.
 
 The recorder's kernels are held at every launch of a whole record: lucy at
 512x512 (wave_record_bounce's entry in the last line is the mean of its
@@ -323,8 +323,7 @@ def compare_raygen(size: int, reps: int):
 
 def _graph_replays_equal(run, want) -> bool:
     """One launch captured in a CUDA graph, the graph replayed twice (its
-    outputs zeroed before each): does every replay give ``want``?  The flat
-    sphere kernels' pixel counter must be set to 0 inside each replay."""
+    outputs zeroed before each): does every replay give ``want``?"""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = run()
@@ -892,12 +891,12 @@ def phase_kernels_new():
         compare_raygen(KERNEL_SIZE, reps=50),
         compare_spheres(scenes.scene_sphere_simple, 512, 512, 1, reps=50),
         compare_spheres(scenes.scene_sphere_simple, 512, 512, 4, reps=0),
-        # the JAX package's BENCH_CONFIGS config1 and config2 (config2 at 8
-        # of its 64 samples: the plain version loops over them); 225 rows
-        # padded to 232
+        # the JAX package's BENCH_CONFIGS config1 and config2 at the
+        # samples and depth their paths run; 225 and 450 rows padded to 232
+        # and 456
         compare_spheres(scenes.scene_rtiow_one_sphere, 400, 225, 16,
                         reps=10, bounces=4),
-        compare_spheres(scenes.scene_rtiow_three_spheres, 800, 450, 8,
+        compare_spheres(scenes.scene_rtiow_three_spheres, 800, 450, 64,
                         reps=5, bounces=10),
         compare_spheres(scenes.scene_sphere_cover, 1280, 720, 1, reps=5),
         compare_bounce_from_raygen(KERNEL_SIZE, reps=5),

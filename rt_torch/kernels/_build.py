@@ -45,9 +45,8 @@ _SIGNATURES = {
                            + [_PTR]),
     },
     "spheres": {
-        "rt_spheres": ([_PTR] * 3 + [ctypes.c_uint] + [_PTR] * 3
+        "rt_spheres": ([_PTR] * 3 + [ctypes.c_uint] + [_PTR] * 2
                        + [_INT] * 14 + [_PTR]),
-        "rt_spheres_lanes": [_INT] * 2,
         "rt_spheres_chunked": ([_PTR] * 5 + [ctypes.c_uint] + [_PTR]
                                + [_INT] * 15 + [_PTR]),
     },

@@ -259,37 +259,18 @@ __device__ __forceinline__ Pixel primary_ray(const Frame& f) {
     return p;
 }
 
-// The same pixel by its (row, col) of the launch, for kernels whose threads
-// do not own a fixed pixel of a tile (the persistent flat sphere kernel).
-__device__ __forceinline__ Pixel primary_ray_at(const Frame& f, int row,
-                                                int col) {
-    Pixel p;
-    p.row = row;
-    p.col = col;
-    generate_ray(f.cam, (uint32_t)col, (uint32_t)(row + f.row0), f.height,
-                 f.width, f.time, f.normalize_defocus_dir != 0, p.state, p.o,
-                 p.d);
-    return p;
-}
-
-// The pixel at offset i of a (Hp, Wp) plane gets its sum over the samples,
-// divided by their count.
-__device__ __forceinline__ void store_color_at(const Frame& f, size_t i,
-                                               Vec3 acc, float* out) {
+__device__ __forceinline__ void store_color(const Frame& f, const Pixel& p,
+                                            Vec3 acc, float* out) {
     if (f.spp > 1) {
         // a true divide: x / 3 and x * (1/3) round differently
         float n = (float)f.spp;
         acc = {acc.x / n, acc.y / n, acc.z / n};
     }
     const size_t plane = (size_t)f.height_pad * f.width_pad;
+    const size_t i = (size_t)p.row * f.width_pad + p.col;
     out[0 * plane + i] = acc.x;
     out[1 * plane + i] = acc.y;
     out[2 * plane + i] = acc.z;
-}
-
-__device__ __forceinline__ void store_color(const Frame& f, const Pixel& p,
-                                            Vec3 acc, float* out) {
-    store_color_at(f, (size_t)p.row * f.width_pad + p.col, acc, out);
 }
 
 __device__ __forceinline__ Vec3 sample_color(const Frame& f, const Pixel& p,

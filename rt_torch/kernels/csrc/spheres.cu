@@ -1,10 +1,10 @@
 // Fused sphere path-trace kernels for Hopper (sm_90a).
 //
-//   spheres_kernel          replaces rt/kernels/sphere_kernel.py:_kernel
+//   spheres_kernel<false>   replaces rt/kernels/sphere_kernel.py:_kernel
 //                           (whole frame, flat scan: raygen, sample loop,
 //                           bounce loop, closest-hit scan over every row,
 //                           scatter, sky, divide by the sample count)
-//   spheres_record_kernel   replaces
+//   spheres_kernel<true>    replaces
 //                           rt/kernels/sphere_kernel.py:_kernel_record
 //                           (the same at one sample per pixel, and the
 //                           winning row of every bounce, -1 on a miss, for
@@ -25,7 +25,7 @@
 // hit because `t < best` is strict and the rows are scanned in the same
 // ascending order.
 //
-// Flat kernels: the table and the kinds are staged in dynamic shared memory
+// Flat kernel: the table and the kinds are staged in dynamic shared memory
 // (9 words a row, sized by the launch; at most 1024 rows, which stays under
 // the 48 KB a block gets without opting in to more; a launch with more rows
 // is refused) and every thread reads the same row at the same time, a
@@ -33,20 +33,14 @@
 // hit_sphere (tris_trace.cuh) with its exact early exits.  A ray that
 // misses stops: a dead ray passes through a bounce unchanged in the TPU
 // kernel, whose whole-tile early exit only skips work, so the image does
-// not depend on the tile or on which thread traces a pixel.  The recorder
-// fills the index planes of the bounces it did not run with -1; the TPU
-// recorder runs every bounce and its dead lanes write the same -1.
-//
-// spheres_kernel runs on a persistent grid whose lanes take new pixels as
-// their paths end, so that a warp is not held by its longest path; the
-// recorder keeps a thread a pixel of a (th, tw) tile.  On an H100
-// (PERF.md) lanes that take new pixels did not beat the tile schedule: the
-// persistent loop's bookkeeping (a ballot a turn, the regeneration of
-// ended samples and the raygen of new pixels in divergent code) and its 59
-// registers (32 warps an SM, against the tile kernel's 36) cost about what
-// the idle lanes did.  The render kernel runs at 0.85-0.98x of the tile
-// kernel it replaced; the recorder with refill ran at 0.78-0.89x of its
-// own, so it kept the tile.
+// not depend on the tile.  The recorder then fills the
+// index planes of the bounces it did not run with -1; the TPU recorder runs
+// every bounce and its dead lanes write the same -1.  A thread owns one
+// pixel of a (th, tw) tile for the whole launch.  A persistent grid whose
+// lanes took new pixels as their paths ended was timed against this on an
+// H100 and was slower for the render kernel (0.85-0.98x) and the recorder
+// (0.78-0.89x): its bookkeeping and registers cost what the idle lanes did
+// (PERF.md).
 //
 // Chunked kernel: one block is one (th, tw) pixel tile, and the tile is the
 // unit of the chunk cull, as in the TPU kernel: if ANY live ray of the block
@@ -77,20 +71,16 @@
 //
 // Bound: operations.  A (ray, sphere) pair costs ~23 f32 operations on 16
 // bytes of row that the whole block shares, a hit's resolve and scatter 45
-// or more; a pixel writes 12 bytes.  On cover, with a thread a pixel, the
-// warps issued ~2.9x the pairs the bound counts: from bounce 2 on 3-27 % of
-// the rays live, in 42-74 % of the warps (the plain version's carry at
-// 320x180, PERF.md).
+// or more; a pixel writes 12 bytes.  On
+// cover, with a thread a pixel, the warps issued ~2.9x the pairs the bound
+// counts: from bounce 2 on 3-27 % of the rays live, in 42-74 % of the warps
+// (the plain version's carry at 320x180, PERF.md).
 //
 // Built with -fmad=false: the plain versions round every multiply and add,
 // so the kernels must not contract them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <algorithm>
-#include <mutex>
-#include <vector>
 
 #include "tris_trace.cuh"
 
@@ -119,180 +109,15 @@ __device__ __forceinline__ void resolve_hit(const float* row, int kind,
                r.atten.z * albedo.z * 0.7f};
 }
 
-// The closest hit of a ray over the first n staged rows, in ascending order
-// with strict 0 < t < best: bt and bidx from FLT_MAX_WGSL and -1.
-__device__ __forceinline__ void flat_scan(const float4* rows, int n,
-                                          const Quadratic& q, float& bt,
-                                          int& bidx) {
-    for (int si = 0; si < n; ++si) {
-        float t;
-        if (hit_sphere(rows[si * (SPH_COLS / 4)], q, bt, t)) {
-            bt = t;
-            bidx = si;
-        }
-    }
-}
-
-// n / d for 0 <= n < 2^24 (exact in a float) and d >= 1, from r = 1 / d:
-// the float quotient is off by at most one, and the products correct it.
-__device__ __forceinline__ int div_small(int n, int d, float r) {
-    int q = (int)((float)n * r);
-    q -= q * d > n;
-    q += (q + 1) * d <= n;
-    return q;
-}
-
-// What a lane needs to find pixel i of the persistent grid's order: (th, tw)
-// tiles row by row, each tile row-major, so that a warp's 32 consecutive
-// indices are the pixels of one warp of the tile kernel.
-struct TileOrder {
-    int th, tw, tile, tiles_per_row;
-    float r_tw, r_tile, r_tiles_per_row;
-};
-
-inline TileOrder tile_order(const Frame& f, int th) {
-    const int tile = th * f.tw, per_row = f.width_pad / f.tw;
-    return {th, f.tw, tile, per_row, 1.0f / (float)f.tw,
-            1.0f / (float)tile, 1.0f / (float)per_row};
-}
-
-// A lane's pixel i: the first sample's ray, a zero sum, bounce 0.  Returns
-// the pixel's offset in a (Hp, Wp) plane.
-__device__ __forceinline__ int start_pixel(const Frame& f, const TileOrder& t,
-                                           int i, Pixel& p, Ray& r, Vec3& acc,
-                                           int& s, int& b) {
-    const int tile = div_small(i, t.tile, t.r_tile);
-    const int k = i - tile * t.tile;
-    const int trow = div_small(tile, t.tiles_per_row, t.r_tiles_per_row);
-    const int krow = div_small(k, t.tw, t.r_tw);
-    const int row = trow * t.th + krow;
-    const int col = (tile - trow * t.tiles_per_row) * t.tw + k - krow * t.tw;
-    p = primary_ray_at(f, row, col);
-    r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
-    acc = {0.0f, 0.0f, 0.0f};
-    s = 0;
-    b = 0;
-    return row * f.width_pad + col;
-}
-
-constexpr int FLAT_BLOCK = 128;   // threads a block of the persistent grid
-constexpr int FLAT_MIN_BLOCKS = 8;  // its blocks a multiprocessor: <= 64
-                                    // registers (9, at 56, spilled and lost)
-constexpr int REGEN_MIN = 8;  // waiting lanes that make a warp regenerate
-                              // (1, 2, 4, 16, 32 were slower on an H100)
-
-// Persistent grid of as many blocks as the card holds resident (fewer for a
-// small frame).  out is (3, Hp, Wp).  Dynamic shared memory: n_spheres rows
-// of SPH_COLS floats, then n_spheres kinds.  next: the pixel counter, 0 at
-// the launch (rt_spheres sets it on the stream, so that a CUDA graph's
-// every replay starts from 0).
-//
-// A lane owns one pixel at a time: its samples one after another, the RNG
-// state carried from each to the next.  A warp traces, a segment (a scan,
-// and the resolve and scatter of a hit) of every live path a turn, until
-// REGEN_MIN of its lanes wait (their path ended, or they hold no pixel while
-// pixels are left) or no path is live.  Then it regenerates them together:
-// an ended path adds its sample's color and starts the next sample, or
-// stores the pixel after the last; lanes without a pixel take the next ones
-// from `next`, one atomicAdd a warp, consecutive pixels by rank in the
-// ballot, in tile order (TileOrder).  Every pixel's arithmetic is the tile
-// kernel's, in the same order, so the image does not change.
-__global__ void __launch_bounds__(FLAT_BLOCK, FLAT_MIN_BLOCKS)
-spheres_kernel(const float* __restrict__ tab,
-               const int* __restrict__ kinds, int n_spheres,
-               Frame f, TileOrder order, float* __restrict__ out,
-               int* __restrict__ next) {
-    extern __shared__ float4 s_dyn[];
-    float* s_tab = reinterpret_cast<float*>(s_dyn);
-    int* s_kind = reinterpret_cast<int*>(s_tab + n_spheres * SPH_COLS);
-    for (int i = threadIdx.x; i < n_spheres * SPH_COLS; i += blockDim.x)
-        s_tab[i] = tab[i];
-    for (int i = threadIdx.x; i < n_spheres; i += blockDim.x)
-        s_kind[i] = kinds[i];
-    __syncthreads();
-
-    constexpr unsigned ALL = 0xffffffffu;
-    const int n_pix = f.height_pad * f.width_pad;
-    const int lane = threadIdx.x & 31;
-    const int first = gridDim.x * blockDim.x;  // pixels handed out by index
-    const int own = blockIdx.x * blockDim.x + threadIdx.x;
-    bool has = own < n_pix;     // the lane holds a pixel
-    bool path = has;            // and its sample's path is live
-    bool more = first < n_pix;  // warp-uniform: pixels left behind `next`
-    Pixel p;
-    Ray r;
-    Vec3 acc;
-    int s = 0, b = 0, at = 0;   // sample, bounce, the pixel's offset
-    if (has) at = start_pixel(f, order, own, p, r, acc, s, b);
-    unsigned holding = __ballot_sync(ALL, has);  // warp-uniform
-
-    for (;;) {
-        for (;;) {
-            if (path) {
-                const Quadratic q = Sph::ray(r.o, r.d);
-                float bt = FLT_MAX_WGSL;
-                int bidx = -1;
-                flat_scan(s_dyn, n_spheres, q, bt, bidx);
-                path = bt != FLT_MAX_WGSL;  // else escaped to the sky
-                if (path) {
-                    resolve_hit(s_tab + bidx * SPH_COLS, s_kind[bidx],
-                                f.flags, bt, r);
-                    path = ++b < f.bounces;
-                }
-            }
-            const unsigned live = __ballot_sync(ALL, path);
-            if (live == 0u
-                || __popc(~live & (more ? ALL : holding)) >= REGEN_MIN)
-                break;
-        }
-        if (has && !path) {
-            p.state = r.state;
-            const Vec3 col = sample_color(f, p, r);
-            acc = f.spp > 1 ? add3(acc, col) : col;
-            if (++s == f.spp) {
-                store_color_at(f, at, acc, out);
-                has = false;
-            } else {
-                r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
-                b = 0;
-                path = true;
-            }
-        }
-        const unsigned idle = __ballot_sync(ALL, !has);
-        if (!more) {
-            if (idle == ALL) break;
-            holding = ~idle;
-            continue;
-        }
-        if (idle) {
-            const int n_idle = __popc(idle);
-            int base = 0;
-            if (lane == 0) base = atomicAdd(next, n_idle);
-            base = first + __shfl_sync(ALL, base, 0);
-            if (!has) {
-                const int mine = base + __popc(idle & ((1u << lane) - 1u));
-                if (mine < n_pix) {
-                    at = start_pixel(f, order, mine, p, r, acc, s, b);
-                    has = path = true;
-                }
-            }
-            more = base + n_idle < n_pix;
-        }
-        holding = __ballot_sync(ALL, has);
-    }
-}
-
-// grid (Wp/tw, Hp/th), block th*tw, a thread a pixel of a tile (launched
-// at spp 1).  out is (3, Hp, Wp), idx (bounces, Hp, Wp): the winning row of
-// every bounce, -1 from the thread's miss on.  Dynamic shared memory: as
-// spheres_kernel's.  The body is the tile kernel's that the render kernel
-// had before its persistent grid, the sample loop included: a rewrite
-// without it (48 registers against 55) was 7 % slower on an H100.
-__global__ void spheres_record_kernel(const float* __restrict__ tab,
-                                      const int* __restrict__ kinds,
-                                      int n_spheres, Frame f,
-                                      float* __restrict__ out,
-                                      int* __restrict__ idx) {
+// grid (Wp/tw, Hp/th), block th*tw.  out is (3, Hp, Wp).  Dynamic shared
+// memory: n_spheres rows of SPH_COLS floats, then n_spheres kinds.
+// RECORD: idx is (bounces, Hp, Wp) and gets the winning row of every bounce,
+// -1 from the thread's miss on (the launch is made with spp 1).
+template <bool RECORD>
+__global__ void spheres_kernel(const float* __restrict__ tab,
+                               const int* __restrict__ kinds, int n_spheres,
+                               Frame f, float* __restrict__ out,
+                               int* __restrict__ idx) {
     extern __shared__ float4 s_dyn[];
     float* s_tab = reinterpret_cast<float*>(s_dyn);
     int* s_kind = reinterpret_cast<int*>(s_tab + n_spheres * SPH_COLS);
@@ -321,12 +146,13 @@ __global__ void spheres_record_kernel(const float* __restrict__ tab,
                 }
             }
             if (bt == FLT_MAX_WGSL) break;  // escaped to the sky
-            idx[b * plane + pix] = bidx;
+            if (RECORD) idx[b * plane + pix] = bidx;
             resolve_hit(s_tab + bidx * SPH_COLS, s_kind[bidx], f.flags, bt,
                         r);
         }
         // the planes of the bounces the thread did not run
-        for (; b < f.bounces; ++b) idx[b * plane + pix] = -1;
+        if (RECORD)
+            for (; b < f.bounces; ++b) idx[b * plane + pix] = -1;
         p.state = r.state;
         Vec3 col = sample_color(f, p, r);
         acc = f.spp > 1 ? add3(acc, col) : col;
@@ -379,100 +205,32 @@ spheres_chunked_kernel(const float* __restrict__ tab,
 // (cudaErrorInvalidValue, launching nothing, on a row count the flat kernels
 // do not stage or a ``chunk`` that is not CHUNK).
 
-namespace {
-
-// The persistent grid of one kernel at `block` threads and `shared` bytes
-// of rows: as many blocks as the card holds resident, asked once per
-// device, kernel, block and shared size and kept (a frame launches it
-// once; one query a launch would cost the host).  Returns the error of a
-// failed query.
-cudaError_t resident_blocks(const void* kernel, int block, size_t shared,
-                            int* blocks) {
-    struct Known { int device; const void* kernel; int block; size_t shared;
-                   int blocks; };
-    static std::mutex mu;
-    static std::vector<Known> known;
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    std::lock_guard<std::mutex> lock(mu);
-    for (const Known& k : known) {
-        if (k.device == device && k.kernel == kernel && k.block == block
-            && k.shared == shared) {
-            *blocks = k.blocks;
-            return cudaSuccess;
-        }
-    }
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        block, shared);
-    if (err != cudaSuccess) return err;
-    known.push_back({device, kernel, block, shared, per_sm * sms});
-    *blocks = per_sm * sms;
-    return cudaSuccess;
-}
-
-// The blocks of a persistent launch over n_pix pixels: the resident grid,
-// or fewer where the frame has fewer pixels than it has threads.
-cudaError_t flat_grid(int n_spheres, int n_pix, int* blocks) {
-    const size_t shared = (size_t)n_spheres * (rt::SPH_COLS + 1) * 4;
-    cudaError_t err = resident_blocks((const void*)rt::spheres_kernel,
-                                      rt::FLAT_BLOCK, shared, blocks);
-    *blocks = std::min(*blocks, (n_pix + rt::FLAT_BLOCK - 1) / rt::FLAT_BLOCK);
-    return err;
-}
-
-}  // namespace
-
 // out: (3, Hp, Wp) f32.  idx: (bounces, Hp, Wp) i32 for the recorder (which
-// is launched with spp 1), or null for the render kernel.  next: one int of
-// device memory, the render kernel's pixel counter, set to 0 here on the
-// stream.  th, tw: the recorder's tile, and the order in which the render
-// kernel hands out pixels (the image depends on neither).  The render
-// kernel takes frames of fewer than 2^24 padded pixels (its index
-// arithmetic is exact in a float there).
+// is launched with spp 1), or null for the render kernel.
 extern "C" int rt_spheres(
         const float* tab, const int* kinds, const float* cam,
-        unsigned int time, float* out, int* idx, int* next, int n_spheres,
-        int height, int width, int height_pad, int width_pad, int th, int tw,
-        int bounces, int spp, int normalize_defocus_dir,
-        int normalize_reflect_in, int has_metal, int has_dielectric,
-        int sky_from_final_dir, void* stream) {
-    const long long n_pix = (long long)height_pad * width_pad;
-    if (n_spheres < 1 || n_spheres > rt::MAX_STAGED_SPHERES
-        || n_pix >= (1LL << 24))
+        unsigned int time, float* out, int* idx, int n_spheres, int height,
+        int width, int height_pad, int width_pad, int th, int tw, int bounces,
+        int spp, int normalize_defocus_dir, int normalize_reflect_in,
+        int has_metal, int has_dielectric, int sky_from_final_dir,
+        void* stream) {
+    if (n_spheres < 1 || n_spheres > rt::MAX_STAGED_SPHERES)
         return (int)cudaErrorInvalidValue;
     rt::Frame f = rt::make_frame(
         cam, time, 0, height, width, height_pad, width_pad, tw, bounces, spp,
         normalize_defocus_dir, normalize_reflect_in, has_metal,
         has_dielectric, sky_from_final_dir);
     const size_t shared = (size_t)n_spheres * (rt::SPH_COLS + 1) * 4;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (idx) {
-        dim3 grid(width_pad / tw, height_pad / th);
-        rt::spheres_record_kernel<<<grid, th * tw, shared, s>>>(
+    dim3 grid(width_pad / tw, height_pad / th);
+    if (idx)
+        rt::spheres_kernel<true><<<grid, th * tw, shared,
+                                   (cudaStream_t)stream>>>(
             tab, kinds, n_spheres, f, out, idx);
-        return (int)cudaGetLastError();
-    }
-    int blocks = 0;
-    cudaError_t err = flat_grid(n_spheres, (int)n_pix, &blocks);
-    if (err == cudaSuccess) err = cudaMemsetAsync(next, 0, sizeof(int), s);
-    if (err != cudaSuccess) return (int)err;
-    rt::spheres_kernel<<<blocks, rt::FLAT_BLOCK, shared, s>>>(
-        tab, kinds, n_spheres, f, rt::tile_order(f, th), out, next);
+    else
+        rt::spheres_kernel<false><<<grid, th * tw, shared,
+                                    (cudaStream_t)stream>>>(
+            tab, kinds, n_spheres, f, out, nullptr);
     return (int)cudaGetLastError();
-}
-
-// Threads of the persistent grid that rt_spheres launches for the render
-// kernel with n_spheres rows over n_pix pixels on the current device, or
-// minus the error of a failed query.
-extern "C" int rt_spheres_lanes(int n_spheres, int n_pix) {
-    int blocks = 0;
-    cudaError_t err = flat_grid(n_spheres, n_pix, &blocks);
-    return err == cudaSuccess ? blocks * rt::FLAT_BLOCK : -(int)err;
 }
 
 extern "C" int rt_spheres_chunked(

@@ -8,8 +8,7 @@ the sample loop, the bounce loop, the closest-hit scan, scatter, sky and the
 divide by the sample count:
 
 - ``render_color_spheres`` — flat scan over the first ``n_spheres`` rows of
-  the table in ascending order (at most ``FLAT_MAX_SPHERES`` rows), on a
-  persistent grid whose lanes take new pixels as their paths end;
+  the table in ascending order (at most ``FLAT_MAX_SPHERES`` rows);
 - ``render_color_spheres_record`` — the same scan at one sample per pixel
   that also returns the winning row of every bounce (counterpart of
   ``_kernel_record``), for the path-replay gradients;
@@ -48,7 +47,6 @@ CHUNK = 32        # spheres per chunk
 FLAT_MAX_SPHERES = 128   # the render dispatch goes chunked above this
 MAX_STAGED_SPHERES = 1024   # rows the flat kernels stage in shared memory
 PAD_RADIUS = -1e30       # a padding row: r*r = +inf, t = -inf, never a hit
-FLAT_MAX_PIXELS = 1 << 24   # the persistent grid's index math is exact below
 
 _FLT_MAX = float(np.float32(FLT_MAX))
 
@@ -365,25 +363,16 @@ def _launch_flat(name: str, max_rows: int, tab, kinds, cam_row, time: int,
     cam = _cam_array(cam_row)
     out = torch.empty((3, height_pad, width_pad), dtype=torch.float32,
                       device=tab.device)
-    idx = counter = None
+    idx = None
     if name == "spheres_record":
         idx = torch.empty((bounces, height_pad, width_pad),
                           dtype=torch.int32, device=tab.device)
-    else:
-        if height_pad * width_pad >= FLAT_MAX_PIXELS:
-            raise ValueError(f"{width_pad}x{height_pad}: the spheres kernel "
-                             f"takes frames of fewer than {FLAT_MAX_PIXELS} "
-                             "padded pixels")
-        # the persistent grid's pixel counter, set to 0 on the stream by the
-        # launch: each launch (and each replay of a graph) counts from 0
-        counter = torch.empty(1, dtype=torch.int32, device=tab.device)
     lib = _build.load()
     code = lib.rt_spheres(
         tab.data_ptr(), kinds.data_ptr(), cam.ctypes.data,
         int(time) & rng.MASK, out.data_ptr(),
-        None if idx is None else idx.data_ptr(),
-        None if counter is None else counter.data_ptr(), n_spheres, height,
-        width, height_pad, width_pad, th, tw, bounces, spp,
+        None if idx is None else idx.data_ptr(), n_spheres, height, width,
+        height_pad, width_pad, th, tw, bounces, spp,
         int(normalize_defocus_dir), int(flags.normalize_reflect_in),
         int(flags.has_metal), int(flags.has_dielectric),
         int(sky_from_final_dir),
@@ -391,20 +380,6 @@ def _launch_flat(name: str, max_rows: int, tab, kinds, cam_row, time: int,
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
     return out if idx is None else (out, idx)
-
-
-def flat_lanes(n_spheres: int, n_pix: int, device="cuda") -> int:
-    """Threads of the persistent grid the flat render kernel launches for
-    ``n_spheres`` rows over ``n_pix`` padded pixels on the card: as many
-    blocks as it holds resident, or fewer for a small frame."""
-    from rt_torch.kernels import _build
-
-    lib = _build.load()
-    with torch.cuda.device(device):
-        lanes = lib.rt_spheres_lanes(n_spheres, n_pix)
-    if lanes < 0:
-        _build.check(lib, -lanes, "spheres")
-    return lanes
 
 
 def render_color_spheres(tab, kinds, cam_row, time: int, *, flags: TraceFlags,
@@ -416,11 +391,9 @@ def render_color_spheres(tab, kinds, cam_row, time: int, *, flags: TraceFlags,
     tab: (N, 8) f32.  kinds: (N,) int32.  cam_row: (1, 20) f32 on the host.
     time: the u32 time uniform.  kw: n_spheres; height, width: the real
     resolution (seed and uv math); height_pad, width_pad: the traced extent,
-    a multiple of (th, tw), fewer than ``FLAT_MAX_PIXELS`` pixels on the
-    card; bounces; normalize_defocus_dir.  On the card the kernel's lanes
-    take pixels in (th, tw) tiles as they finish others; the result does
-    not depend on the tile or on which lane traces a pixel: no ray reads
-    another's state.
+    a multiple of (th, tw), one CUDA block per tile; bounces;
+    normalize_defocus_dir.  The result does not depend on the tile: no ray
+    reads another's state.
     """
     if tab.device.type == "cpu":
         return render_color_spheres_plain(
@@ -438,8 +411,7 @@ def render_color_spheres_record(tab, kinds, cam_row, time: int, *,
     frame of ``render_color_spheres`` at one sample per pixel, and per
     bounce the table row each pixel's ray hit, -1 on a miss and from then
     on — what the path-replay gradients consume.  The flat scan whatever
-    the sphere count, up to ``MAX_STAGED_SPHERES`` rows on the card, a CUDA
-    block a (th, tw) tile (lanes that took new pixels were slower here).
+    the sphere count, up to ``MAX_STAGED_SPHERES`` rows on the card.
     kw: as for ``render_color_spheres``.
     """
     if tab.device.type == "cpu":

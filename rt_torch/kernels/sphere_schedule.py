@@ -1,33 +1,27 @@
 """How the flat sphere kernel's lanes spend a frame — a model in plain
-tensor code of its two schedules, from the plain version's own counts.
+tensor code of its schedule, from the plain version's own counts.
 
 - ``sample_scans``: the segments (a scan, and the resolve and scatter of a
   hit) each pixel's path runs in each sample, from the live masks of the
   plain version (``sphere_kernel.sphere_bounce``): at most ``bounces``, one
   more than its hits where it escapes.
 - ``tile_schedule``: a thread a pixel of a (th, tw) tile, 32 threads a warp,
-  every thread running each sample's bounce loop to its own end: a warp
-  turns the loop, sample by sample, as often as its longest path.
-- ``refill_schedule``: the persistent grid (``csrc/spheres.cu``): a lane
-  runs its pixel's segments one a turn, samples in order; a warp traces
-  until ``regen_min`` of its lanes wait, then ends their samples, starts
-  the next ones and hands its free lanes the next pixels from one counter,
-  by rank, the pixels numbered tile by tile.
+  every thread running each sample's bounce loop to its own end
+  (``csrc/spheres.cu:spheres_kernel``): a warp turns the loop, sample by
+  sample, as often as its longest path.
 
-Lane efficiency is segments over 32 times the warp turns that ran one.
+Lane efficiency is segments over 32 times the warp turns that ran one; its
+inverse is the most any schedule of whole pixels could save in turns.
 These are counts, not times: what a turn costs is the kernel's business.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from rt_torch.kernels import sphere_kernel as sk
 
 WARP = 32
-REGEN_MIN = 8   # csrc/spheres.cu: the waiting lanes that make a warp
-                # regenerate
 
 
 def sample_scans(tab, kinds, cam_row, time: int, *, n_spheres: int,
@@ -72,104 +66,3 @@ def tile_schedule(scans: torch.Tensor, th: int, tw: int) -> dict:
     segments = int(scans.to(torch.int64).sum())
     return {"warp_turns": turns, "segments": segments,
             "lane_efficiency": segments / max(1, WARP * turns)}
-
-
-def tile_order(hp: int, wp: int, th: int, tw: int) -> torch.Tensor:
-    """(Hp*Wp,) int64: the row-major pixel of each index of the persistent
-    grid's order — (th, tw) tiles row by row, each tile row-major
-    (``spheres.cu:pixel_of``), so 32 consecutive indices are the pixels of
-    one warp of the tile kernel."""
-    i = torch.arange(hp * wp)
-    tile, k = i // (th * tw), i % (th * tw)
-    row = tile // (wp // tw) * th + k // tw
-    col = tile % (wp // tw) * tw + k % tw
-    return row * wp + col
-
-
-def refill_schedule(scans: torch.Tensor, lanes: int, th: int, tw: int,
-                    regen_min: int = REGEN_MIN,
-                    trace: list | None = None) -> dict:
-    """Warp turns of the persistent grid of ``lanes`` threads (a multiple
-    of 32) over a (spp, Hp, Wp) ``scans``, pixels in ``tile_order``.  Lane
-    l starts on pixel index l.  A warp traces, a segment of every live
-    path a turn, until ``regen_min`` of its lanes wait (their path ended,
-    or they hold no pixel while pixels are left) or none is live; then it
-    regenerates them: an ended path ends its sample and starts the next or,
-    after the last, frees the lane; free lanes take the next indices from
-    ``lanes`` on, the regenerating warps of one turn in warp order.
-
-    trace: a list that gets, for each turn, the (row-major pixel, sample,
-    segment) each live lane ran, as an (n, 3) int64 array.  Returns the
-    warp turns (summed over warps), the segments, the lane efficiency, the
-    most turns of one warp, the regenerations (a warp's, where a sample
-    ended), the refills (a warp's, where a lane took a pixel) and the
-    pixels taken from the counter."""
-    if lanes % WARP:
-        raise ValueError(f"lanes={lanes}: whole warps")
-    spp, hp, wp = scans.shape
-    order = tile_order(hp, wp, th, tw)
-    work = scans.reshape(spp, -1)[:, order].to(torch.int64).numpy()
-    order = order.numpy()
-    n_pix = work.shape[1]
-    if n_pix and work.min() < 1:
-        raise ValueError("every sample runs at least one segment")
-    warps = lanes // WARP
-    by_warp = lambda x: x.reshape(warps, WARP)            # noqa: E731
-    pix = np.arange(lanes, dtype=np.int64)
-    has = pix < n_pix                 # the lane holds a pixel
-    path = has.copy()                 # and its sample's path is live
-    pix = np.where(has, pix, 0)
-    s = np.zeros(lanes, np.int64)
-    b = np.zeros(lanes, np.int64)
-    more = np.full(warps, lanes < n_pix)
-    regen = np.zeros(warps, bool)     # the warp regenerates before its turn
-    done = np.zeros(warps, bool)
-    counter = taken = regens = refills = 0
-    turns = np.zeros(warps, np.int64)
-    while not done.all():
-        # regenerate: the ended paths' samples, then the free lanes
-        ended = np.repeat(regen, WARP) & has & ~path
-        regens += int(by_warp(ended).any(axis=1).sum())
-        s = np.where(ended, s + 1, s)
-        last = ended & (s == spp)
-        has = has & ~last
-        path = path | (ended & ~last)
-        s = np.where(last, 0, s)
-        b = np.where(ended, 0, b)
-        idle = ~by_warp(has)
-        n_idle = idle.sum(axis=1)
-        done |= regen & (n_idle == WARP) & ~more
-        refill = regen & more & (n_idle > 0)
-        adds = np.where(refill, n_idle, 0)           # one atomicAdd a warp
-        base = lanes + counter + np.cumsum(adds) - adds
-        counter += int(adds.sum())
-        mine = (base[:, None] + np.cumsum(idle, axis=1) - idle).reshape(-1)
-        take = np.repeat(refill, WARP) & ~has & (mine < n_pix)
-        refills += int(by_warp(take).any(axis=1).sum())
-        taken += int(take.sum())
-        pix = np.where(take, mine, pix)
-        s = np.where(take, 0, s)
-        b = np.where(take, 0, b)
-        has |= take
-        path |= take
-        more &= ~(refill & (base + n_idle >= n_pix))
-        # one segment of every live path: it goes on, or its sample ends
-        active = by_warp(path).any(axis=1)
-        turns += active
-        if trace is not None and path.any():
-            trace.append(np.stack([order[pix[path]], s[path], b[path]],
-                                  axis=1))
-        goes_on = path & (b + 1 < work[s, pix])
-        b = np.where(goes_on, b + 1, b)
-        path = goes_on
-        live = by_warp(path).any(axis=1)
-        waiting = (~by_warp(path) & (by_warp(has) | more[:, None])).sum(1)
-        regen = ~live | (waiting >= regen_min)
-        done |= ~live & ~by_warp(has).any(axis=1) & ~more
-    segments = int(work.sum())
-    total = int(turns.sum())
-    return {"warp_turns": total, "segments": segments,
-            "lane_efficiency": segments / max(1, WARP * total),
-            "most_turns_of_a_warp": int(turns.max(initial=0)),
-            "regenerations": regens, "refills": refills,
-            "pixels_from_counter": taken}

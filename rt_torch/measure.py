@@ -1005,19 +1005,14 @@ def _record_occupancy(name: str, device="cuda"):
         "bounces": rows}), flush=True)
 
 
-REGEN_MINS = (1, 8, 16, 32)
-
-
 def _flat_occupancy(path: str, device="cuda"):
     """The flat sphere kernel's lanes on one frame of the named path
     (``sphere_schedule``, from its plain version at the path's size and
     samples): segments (a bounce's scan, and the hit's resolve and
     scatter) a sample per pixel, mean and most, and their histogram; the
     warp turns and lane efficiency of the tile schedule (a thread a pixel
-    of an 8x16 tile) and of the persistent grid that the card holds
-    (``sphere_kernel.flat_lanes``) regenerating at 1, 8 (the kernel's),
-    16 and 32 waiting lanes, with each one's regenerations, refills and
-    factor of fewer turns."""
+    of an 8x16 tile), and the factor of fewer turns that a schedule
+    without idle lanes would reach at best."""
     from rt_torch.kernels import sphere_schedule
 
     card = _card()
@@ -1027,12 +1022,6 @@ def _flat_occupancy(path: str, device="cuda"):
         **kw).cpu()
     th, tw = kw["th"], kw["tw"]
     tile = sphere_schedule.tile_schedule(scans, th, tw)
-    lanes = sphere_kernel.flat_lanes(packed.n, kw["height_pad"]
-                                     * kw["width_pad"], device)
-    refill = {}
-    for k in REGEN_MINS:
-        r = sphere_schedule.refill_schedule(scans, lanes, th, tw, k)
-        refill[k] = r | {"fewer_turns": tile["warp_turns"] / r["warp_turns"]}
     print(json.dumps({
         "measure": "occupancy", "path": path, "card": card,
         "size": [kw["width"], kw["height"]],
@@ -1041,9 +1030,8 @@ def _flat_occupancy(path: str, device="cuda"):
         "segments_per_sample": {
             "mean": float(scans.float().mean()), "most": int(scans.max()),
             "histogram": torch.bincount(scans.reshape(-1).long()).tolist()},
-        "tile": [th, tw],
-        "tile_schedule": tile, "lanes": lanes,
-        "refill_schedule": refill}), flush=True)
+        "tile": [th, tw], "tile_schedule": tile,
+        "fewer_turns_at_best": 1 / tile["lane_efficiency"]}), flush=True)
 
 
 def occupancy(path: str = "sphere_cover", device="cuda"):

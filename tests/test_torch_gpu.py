@@ -728,10 +728,9 @@ def _flat_frame(make_scene, width, height, n=None):
     ("scene_sphere_globe", 36, 1), ("scene_sphere_cover", 484, 1)])
 def test_cuda_flat_kernels_equal_plain_with_padding_bitwise(make_scene, n,
                                                            spp):
-    """K5 (up to FLAT_MAX_SPHERES rows) on the persistent grid whose lanes
-    take new pixels, and at one sample K8 (a thread a pixel of a tile),
-    color and index planes: a 100x70 frame padded to 112x72, every padded
-    pixel traced and written; 1 to 484 rows, 1 to 16 samples."""
+    """K5 (up to FLAT_MAX_SPHERES rows) and at one sample K8, color and
+    index planes: a 100x70 frame padded to 112x72, every padded pixel
+    traced and written; 1 to 484 rows, 1 to 16 samples."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tab, kinds, n_, cam_row, args = _flat_frame(make_scene, 100, 70, n)
@@ -760,10 +759,10 @@ def test_cuda_flat_kernels_equal_plain_with_padding_bitwise(make_scene, n,
 @pytest.mark.gpu
 @pytest.mark.parametrize("record", [False, True])
 def test_cuda_flat_kernels_replayed_from_a_graph_equal_plain(record):
-    """One launch captured in a CUDA graph and the graph replayed twice:
-    K5's pixel counter is set to 0 inside each replay, so each gives the
-    plain version's image, not an empty frame; K8 (no counter) the same
-    with its index planes."""
+    """One launch captured in a CUDA graph and the graph replayed twice,
+    its outputs zeroed before each: each replay gives the plain version's
+    image (K5) or image and index planes (K8), not a stale or empty
+    frame."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     tab, kinds, n, cam_row, args = _flat_frame("scene_rtiow_three_spheres",
@@ -795,3 +794,28 @@ def test_cuda_flat_kernels_replayed_from_a_graph_equal_plain(record):
         torch.cuda.synchronize()
         for o, w in zip(outs, want):
             assert _bit_equal(o, w)
+
+
+@pytest.mark.gpu
+def test_cuda_flat_kernel_renders_a_4096_square_frame_bitwise():
+    """K5 through the render dispatch on a 4096x4096 frame (2^24 pixels,
+    past the range in which a float holds every pixel index exactly) at 4
+    bounces: one launch, bit-equal to the plain version, every pixel
+    finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sd = tscenes.scene_sphere_simple(4096, 4096, device="cuda")
+    cfg = dataclasses.replace(sd.config, bounces=4)
+    packed = tdispatch.pack_scene(sd.scene, cfg)
+    before = tsk.LAUNCHES["spheres"]
+    k = tdispatch.render_color_spheres(packed, sd.camera, cfg, TIME)
+    assert tsk.LAUNCHES["spheres"] == before + 1
+    p = tsk.render_color_spheres_plain(
+        packed.tab, packed.kinds, tdispatch.pack_camera(sd.camera), TIME,
+        n_spheres=packed.n, height=4096, width=4096, height_pad=4096,
+        width_pad=4096, bounces=4,
+        normalize_defocus_dir=cfg.normalize_defocus_dir,
+        flags=tdispatch.trace_flags(cfg),
+        sky_from_final_dir=cfg.sky_from_final_dir)
+    assert k.shape == (4096, 4096, 3)
+    assert _bit_equal(k, p.permute(1, 2, 0)) and bool(torch.isfinite(k).all())

@@ -1,15 +1,14 @@
 """The flat sphere kernel's schedule model (``rt_torch.kernels.
 sphere_schedule``), which ``measure occupancy`` prints for the flat sphere
 paths: its per-pixel segment counts against the plain version's own live
-masks and index planes, and its model of the persistent grid whose lanes
-take new pixels — every (pixel, sample, bounce) run once, in the pixel's
-own order, over a padded frame, in no more warp turns than the tile
-schedule.  Counts are integers: tolerance none.  Thumbnail frames, one
-torch thread a test."""
+masks and index planes, and its warp turns of the tile schedule against a
+count by hand and an independent loop over the warps of a padded frame.
+(A persistent grid whose lanes took new pixels was timed and was slower;
+its model went with it.)  Counts are integers: tolerance none.  Thumbnail
+frames, one torch thread a test."""
 
 import dataclasses
 
-import numpy as np
 import pytest
 import torch
 
@@ -49,7 +48,9 @@ def plain_kw(kw, drop=()):
 
 
 @pytest.mark.parametrize("make_scene", ["scene_rtiow_three_spheres",
-                                        "scene_sphere_simple"])
+                                        "scene_sphere_simple",
+                                        "scene_rtiow_one_sphere",
+                                        "test_scene_dielectric"])
 def test_sample_scans_equal_the_plain_versions_live_masks(make_scene,
                                                           monkeypatch):
     """Per pixel, the segments summed over samples are the plain render's
@@ -83,53 +84,38 @@ def test_sample_scans_equal_the_plain_versions_live_masks(make_scene,
     assert int(scans.min()) == 1 and int(scans.max()) == kw["bounces"]
 
 
-def expected_order(scans):
-    """(pixel, sample, segment) of every segment in each pixel's own order,
-    pixels ascending."""
-    spp = scans.shape[0]
-    work = scans.reshape(spp, -1).numpy().astype(np.int64)
-    rows = [(pix, s, b) for pix in range(work.shape[1])
-            for s in range(spp) for b in range(work[s, pix])]
-    return np.array(rows, np.int64)
-
-
-@pytest.mark.parametrize("regen_min", [1, 8, 16, 32])
-@pytest.mark.parametrize("lanes", [64, 256, 1024])
-def test_refill_model_runs_each_segment_once_in_pixel_order(lanes,
-                                                            regen_min):
-    """The model of the persistent grid on a padded frame at 3 samples
-    and 10 bounces: each pixel's samples in order and each sample's
-    segments in order, every one exactly once; the counter hands out the
-    pixels past the first ``lanes``.  At the kernel's REGEN_MIN (and at 1,
-    where a lane never waits), no more warp turns than the tile schedule;
-    at 16, with no pixel left for the counter (1024 lanes), the model takes
-    277 turns to the tile schedule's 275, so no such claim is made there."""
-    p, cam_row, kw = frame("scene_rtiow_three_spheres", 3, 10)
+@pytest.mark.parametrize("make_scene,spp,bounces", [
+    ("scene_rtiow_three_spheres", 3, 10), ("scene_rtiow_one_sphere", 4, 4),
+    ("scene_sphere_simple", 1, 10)])
+def test_tile_schedule_turns_each_warp_as_its_longest_path(make_scene, spp,
+                                                           bounces):
+    """On a padded thumbnail frame, the tile schedule's warp turns are, for
+    every sample, tile and warp of 32 consecutive threads of the row-major
+    tile, its lanes' most segments, counted here by a loop over the warps;
+    its lane efficiency lies in (0, 1] and no schedule of whole pixels
+    could take fewer turns than the segments over 32."""
+    p, cam_row, kw = frame(make_scene, spp, bounces)
     scans = ss.sample_scans(p.tab, p.kinds, cam_row, TIME, **kw)
-    n_pix = kw["height_pad"] * kw["width_pad"]
-    trace = []
-    got = ss.refill_schedule(scans, lanes, kw["th"], kw["tw"], regen_min,
-                             trace=trace)
-    ran = np.concatenate(trace)
-    # a stable sort by pixel keeps each pixel's segments in the order run
-    ran = ran[np.argsort(ran[:, 0], kind="stable")]
-    np.testing.assert_array_equal(ran, expected_order(scans))
-    assert got["segments"] == len(ran) == int(scans.sum())
-    assert got["pixels_from_counter"] == max(0, n_pix - lanes)
-    tile = ss.tile_schedule(scans, kw["th"], kw["tw"])
-    assert tile["segments"] == got["segments"]
-    if regen_min in (1, ss.REGEN_MIN):
-        assert got["warp_turns"] <= tile["warp_turns"]
-        assert 0 < tile["lane_efficiency"] <= got["lane_efficiency"] <= 1
-    assert got["regenerations"] > 0
-    assert (got["refills"] > 0) == (lanes < n_pix)
+    th, tw = kw["th"], kw["tw"]
+    got = ss.tile_schedule(scans, th, tw)
+    work = scans.numpy()
+    turns = 0
+    for s in range(spp):
+        for r0 in range(0, kw["height_pad"], th):
+            for c0 in range(0, kw["width_pad"], tw):
+                tile = work[s, r0:r0 + th, c0:c0 + tw].reshape(-1)
+                turns += sum(int(tile[w:w + 32].max())
+                             for w in range(0, th * tw, 32))
+    assert got["warp_turns"] == turns
+    assert got["segments"] == int(work.sum())
+    assert -(-got["segments"] // 32) <= turns
+    assert 0 < got["lane_efficiency"] <= 1
 
 
-def test_refill_model_without_refills_and_tile_model_by_hand():
-    """Hand-made counts: with a lane for every pixel no pixel comes from
-    the counter and a warp turns as often as its longest pixel's segments
-    over all samples; the tile schedule turns, sample by sample, as often
-    as each warp's longest path."""
+def test_tile_schedule_by_hand():
+    """Hand-made counts: the tile schedule turns, sample by sample, as
+    often as each warp's longest path; a tile that is not whole warps, or
+    a frame that is not whole tiles, is refused."""
     scans = torch.ones((2, 8, 16), dtype=torch.int32)
     scans[0, 0, 0] = 5          # warp 0: rows 0-1 of the 8x16 tile
     scans[1, 0, 1] = 4
@@ -138,11 +124,8 @@ def test_refill_model_without_refills_and_tile_model_by_hand():
     # warp 0: max 5 then 4; warps 1, 2: 1 + 1; warp 3: 1 then 3
     assert tile["warp_turns"] == 9 + 2 + 2 + 4
     assert tile["segments"] == 256 + 4 + 3 + 2
-    refill = ss.refill_schedule(scans, 128, 8, 16)
-    # one 8x16 tile, 32 lanes a warp: warp 0 holds rows 0-1 (pixel 0: 5 + 1
-    # segments, pixel 1: 1 + 4), warp 3 rows 6-7 (pixel 127: 1 + 3)
-    assert refill["pixels_from_counter"] == 0
-    assert refill["most_turns_of_a_warp"] == 6
-    assert refill["warp_turns"] == 6 + 2 + 2 + 4
+    assert tile["lane_efficiency"] == 265 / (32 * 17)
     with pytest.raises(ValueError, match="whole warps"):
-        ss.refill_schedule(scans, 100, 8, 16)
+        ss.tile_schedule(scans, 4, 4)
+    with pytest.raises(ValueError, match="whole warps"):
+        ss.tile_schedule(scans[:, :6], 8, 16)
