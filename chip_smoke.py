@@ -728,14 +728,70 @@ def phase_kernels_record():
     return [lucy[0], _per_launch(lucy, "wave_record_bounce")] + dragon
 
 
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def _p2_shape(name, kernel, pairs):
+    """A P2 kernel's launch (``r5_mxu.launch_shape``), registers (``-Xptxas
+    -v``), the SASS instructions of its innermost loop, those a pair runs
+    (the loop's less the slow path that a branch skips, the IEEE division's
+    for x of an extreme exponent: these inputs take none), and the issue
+    floor they give: a pair's instructions for every 32 pairs (a warp
+    instruction), four a cycle on each SM at the card's top clock."""
+    from rt_torch.probes import r5_mxu
+
+    lib = _build.load()
+    shape = r5_mxu.launch_shape(name, r5_mxu.R, 64, DEV)
+    ptxas = [u for u in _build.ptxas_usage(lib.build_log)
+             if u["kernel"].startswith(kernel + "<")]
+    loops = [v for k, v in _build.sass_loops(lib.paths["probes"]).items()
+             if k.startswith(kernel + "<")]
+    if not loops or not loops[0]:
+        raise SystemExit(f"probes: no loop of {kernel} in the SASS")
+    body = loops[0][0]
+    per_pair = (body["instructions"] - body["slow_path"]) \
+        / shape["pairs_per_turn"]
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    clock = max_sm_clock_mhz() * 1e6
+    floor_ms = pairs / 32 * per_pair / (sms * 4 * clock) * 1e3
+    return dict(launch=shape, sms=sms, max_sm_clock_mhz=clock / 1e6,
+                registers=ptxas[0]["registers"] if ptxas else None,
+                static_smem_bytes=ptxas[0]["smem_bytes"] if ptxas else None,
+                spill_bytes=(ptxas[0].get("spill_store_bytes", 0)
+                             + ptxas[0].get("spill_load_bytes", 0))
+                if ptxas else None,
+                sass_loop=body, instructions_per_pair=per_pair,
+                issue_floor_ms=floor_ms)
+
+
+def _one_launch(name, fn):
+    """fn(), which must launch kernel ``name`` exactly once."""
+    from rt_torch import probes
+
+    n = probes.launch_counts()[name]
+    out = fn()
+    if probes.launch_counts()[name] != n + 1:
+        raise SystemExit(f"probes: a pass of {name} launched "
+                         f"{probes.launch_counts()[name] - n} times")
+    return out
+
+
 def phase_probes():
     """The probes of ``rt_torch.probes``: ``python -m rt_torch.probes
     lane_gather`` and ``r5_mxu`` at the tools' sizes (three shapes at 512
     iterations; 64 chunks, 200 repetitions) with the launch counts set to 0
     just before and read just after; then each kernel against its plain
     version at those shapes.  Limits: P1 and P2 A bit-equal (P1 also to the
-    tool's NumPy reference); P2 B within ``r5_mxu.woop_agreement``.  Returns
-    (records, launches on the entry point's run)."""
+    tool's NumPy reference); P2 B within ``r5_mxu.woop_agreement``.  Each
+    P2 kernel is one launch a pass on a grid of at least one block an SM;
+    its entry gives its launch, registers and resident blocks an SM, and
+    its SASS instructions a pair.  Returns (records, launches on the entry
+    point's run)."""
     from rt_torch import probes
     from rt_torch.probes import __main__ as probes_cli
     from rt_torch.probes import lane_gather, r5_mxu
@@ -778,13 +834,17 @@ def phase_probes():
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, library_ms=None))
 
+    rcp_bad = r5_mxu.reciprocal_mismatches(DEV)
+    if rcp_bad:
+        raise SystemExit(f"probes: the P2 kernels' reciprocal differs from "
+                         f"IEEE division on {rcp_bad} floats")
     n_chunks = 64
     a = r5_mxu.to_device(r5_mxu.inputs(n_chunks), DEV)
     pairs = r5_mxu.R * n_chunks * r5_mxu.CHUNK
     in_bytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
 
     run_a = lambda: r5_mxu.mt_scan(a["tri"], a["o"], a["d"])
-    k = run_a()
+    k = _one_launch("mt_scan", run_a)
     p, plain_ms = _plain_timed(lambda: r5_mxu.mt_scan_plain(a["tri"], a["o"],
                                                             a["d"]))
     err, frac = _diff((k.reshape(1, -1),), (p.reshape(1, -1),))
@@ -799,10 +859,11 @@ def phase_probes():
                 ms=_timed_graph(run_a, 50), plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                flops=flops, library_ms=None)
+                flops=flops, library_ms=None,
+                **_p2_shape("mt_scan", "mt_scan_kernel", pairs))
 
     run_b = lambda: r5_mxu.woop(a["w"], a["x"])
-    k = run_b()
+    k = _one_launch("woop_mma", run_b)
     (p, win), plain_ms = _plain_timed(lambda: r5_mxu.woop_plain(
         a["w"], a["x"], winner=True))
     agree = r5_mxu.woop_agreement(k, p, a["w"], a["x"], win)
@@ -823,7 +884,8 @@ def phase_probes():
                 else "bytes",
                 bound_parts_ms=dict(tensor_core=t_mma, cuda_core=t_epi,
                                     bytes=t_bytes),
-                flops=mma_flops + epi_flops, library_ms=None)
+                flops=mma_flops + epi_flops, library_ms=None,
+                **_p2_shape("woop_mma", "woop_mma_kernel", pairs))
 
     ab = dict(n_chunks=n_chunks, rays=r5_mxu.R, pairs=pairs,
               a_us_per_pass=scan["ms"] * 1e3,
@@ -833,6 +895,7 @@ def phase_probes():
               a_over_b=scan["ms"] / woop["ms"],
               b_at_least_2x_faster=scan["ms"] >= 2 * woop["ms"])
     say(phase="probes", launches=launches, a_vs_b=ab,
+        reciprocal_mismatches_of_2_32=rcp_bad,
         limit="lane_gather, mt_scan bit-equal to plain (lane_gather also "
               "to the NumPy reference); woop_mma: hit/miss on at most "
               f"{r5_mxu.HIT_MISS_LIMIT} of the rays, t within "
@@ -845,6 +908,10 @@ def phase_probes():
         raise SystemExit(f"probes: a kernel disagrees with its plain "
                          f"version: lane_gather {bad}, mt_scan rays "
                          f"{scan['rays_differ']}, woop_mma {agree}")
+    small = [r["name"] for r in (scan, woop)
+             if r["launch"]["grid"] < r["sms"]]
+    if small:
+        raise SystemExit(f"probes: the grid of {small} leaves SMs idle")
     # one entry a kernel: lane_gather at its largest shape
     return [gather[-1], scan, woop], launches
 

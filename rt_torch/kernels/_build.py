@@ -11,8 +11,8 @@ Flags: ``-fmad=false`` keeps ``a*b+c`` as two rounded operations, which is
 what the plain PyTorch versions compute, so kernel and plain version can be
 held to each other bit for bit.  No ``--use_fast_math``: division and square
 root stay IEEE.  ``-Xptxas -v`` puts each kernel's registers, shared memory
-and spills in the log (``ptxas_usage``); ``sass_summary`` reads the built
-code back with ``cuobjdump``.
+and spills in the log (``ptxas_usage``); ``sass_summary`` and
+``sass_loops`` read the built code back with ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ _SIGNATURES = {
         "rt_lane_gather": [_PTR] * 3 + [_INT] * 3 + [_PTR],
         "rt_mt_scan": [_PTR] * 4 + [_INT] * 2 + [_PTR],
         "rt_woop_mma": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+        "rt_probe_shape": [_INT] * 3 + [_PTR],
+        "rt_probe_rcp_check": [_PTR] * 2,
     },
 }
 
@@ -186,14 +188,19 @@ def ptxas_usage(log: str) -> list[dict]:
     return out
 
 
+def _sass(path: str) -> str:
+    """``cuobjdump -sass`` of a built library."""
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def sass_summary(path: str) -> dict:
     """Per kernel of a built library (``cuobjdump -sass``): instructions,
     and how many are MUFU.RCP (the reciprocal's approximation), FCHK (a full
     IEEE division's range check), CALL (a slow path), BAR (barriers) and
     local-memory loads and stores."""
-    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
+    text = _sass(path)
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\w+)", line)
@@ -209,6 +216,69 @@ def sass_summary(path: str) -> dict:
         cur["call"] += "CALL" in line
         cur["bar"] += bool(re.search(r"\bBAR\.", line))
         cur["local"] += bool(re.search(r"\b(LDL|STL)\b", line))
+    return out
+
+
+def sass_loops(path: str) -> dict:
+    """Per kernel of a built library (``cuobjdump -sass``): the instructions
+    of each innermost loop (``loops_in_sass``)."""
+    return loops_in_sass(_sass(path))
+
+
+def loops_in_sass(text: str) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing: each innermost loop (a
+    span from a branch's target up to the branch back to it that holds no
+    other such span) as ``instructions`` and ``slow_path``, the instructions
+    a forward branch inside it skips where they hold a CALL (a slow path
+    such as the IEEE division's, not run when that branch is taken), the
+    largest loop first."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = funcs.setdefault(short_name(m.group(1)),
+                                   dict(ops=[], labels={}, branches=[]))
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur["labels"][m.group(1)] = len(cur["ops"])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        cur["ops"].append((int(m.group(1), 16), m.group(2)))
+        br = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))",
+                       m.group(2))
+        if br:
+            cur["branches"].append((len(cur["ops"]) - 1, br.group(1),
+                                    br.group(2)))
+    out = {}
+    for name, f in funcs.items():
+        where = {a: i for i, (a, _) in enumerate(f["ops"])}
+        jumps = []
+        for i, label, addr in f["branches"]:
+            j = f["labels"].get(label) if label else where.get(int(addr, 16))
+            if j is not None:
+                jumps.append((i, j))
+        back = [(j, i) for i, j in jumps if j <= i]
+        loops = []
+        for j, i in back:
+            if any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
+                   for j2, i2 in back):
+                continue
+            # the outermost skipped spans that hold a CALL
+            skips = sorted((b + 1, t) for b, t in jumps
+                           if j <= b < t <= i and any(
+                               "CALL" in op for _, op in f["ops"][b + 1:t]))
+            slow, end = 0, -1
+            for a, t in skips:
+                if a >= end:
+                    slow += t - a
+                    end = t
+            loops.append(dict(instructions=i - j + 1, slow_path=slow))
+        out[name] = sorted(loops, key=lambda d: -d["instructions"])
     return out
 
 

@@ -18,6 +18,13 @@ triangles for each of ``R = 8192`` rays:
   exact bf16 products in order; the tensor cores sum them their own way, so
   B is held to ``woop_plain`` within ``woop_agreement``'s limits.
 
+Both kernels split the chunks among the blocks of a thread-block cluster
+that share a group of rays and take the least of the blocks' partial bests
+(``launch_shape`` reads the launch).  That is exact: each result is
+min(FLT_MAX, least valid t) over its rows in any order, so
+``torch.minimum`` of the plain versions over slices of the chunks is the
+plain version over all of them, bit for bit.
+
 A wrapper launches its kernel on a CUDA tensor and runs its plain version on
 a CPU tensor; ``LAUNCHES`` counts kernel launches, nothing else.
 
@@ -30,6 +37,8 @@ the TPU's VMEM) are not knobs here.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -195,6 +204,9 @@ def woop(w: torch.Tensor, x: torch.Tensor):
                          f"(R, {WOOP_K})")
     _require(w, "w", torch.bfloat16, (w.shape[0], WOOP_K, WOOP_COLS))
     _require(x, "x", torch.float32, (x.shape[0], WOOP_K))
+    if w.data_ptr() % 16:
+        raise ValueError("woop: w must start on a 16-byte boundary (the "
+                         "kernel stages it in 16-byte loads)")
     out = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
     lib = _build.load()
     code = lib.rt_woop_mma(w.data_ptr(), x.data_ptr(), out.data_ptr(),
@@ -203,6 +215,42 @@ def woop(w: torch.Tensor, x: torch.Tensor):
     _build.check(lib, code, "woop_mma")
     LAUNCHES["woop_mma"] += 1
     return out
+
+
+def launch_shape(kernel: str, n_rays: int = R, n_chunks: int = 64,
+                 device="cuda") -> dict:
+    """The launch of ``mt_scan`` or ``woop_mma`` at these sizes and the
+    card's occupancy for it: grid (blocks), cluster (blocks a cluster, each
+    a slice of the chunks), threads a block, dynamic shared bytes, resident
+    blocks an SM and clusters resident at once (the CUDA occupancy API),
+    pairs a thread (lane) takes in one turn of its innermost loop."""
+    from rt_torch.kernels import _build
+
+    lib = _build.load()
+    vals = (ctypes.c_int * 7)()
+    with torch.cuda.device(torch.device(device)):
+        code = lib.rt_probe_shape({"mt_scan": 0, "woop_mma": 1}[kernel],
+                                  n_rays, n_chunks, vals)
+    _build.check(lib, code, f"launch_shape({kernel})")
+    return dict(zip(("grid", "cluster", "threads", "dynamic_smem_bytes",
+                     "blocks_per_sm", "active_clusters", "pairs_per_turn"),
+                    vals))
+
+
+def reciprocal_mismatches(device="cuda") -> int:
+    """The floats x (of all 2**32 bit patterns) whose reciprocal as both
+    kernels take it, a fast path written out with the slow path's branch
+    shared by several x, differs from ``1.0f / x`` compiled with IEEE
+    division: 0 for the kernels to be held to their plain versions."""
+    from rt_torch.kernels import _build
+
+    dev = torch.device(device)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = _build.load()
+    code = lib.rt_probe_rcp_check(bad.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "reciprocal_mismatches")
+    return int(bad.item())
 
 
 def woop_agreement(t: torch.Tensor, t_ref: torch.Tensor, w: torch.Tensor,
@@ -256,5 +304,11 @@ def main(device="cuda", reps: int = 200, chunks: int = 64) -> None:
     for name, fn in (("A mt_scan", lambda: mt_scan(a["tri"], a["o"], a["d"])),
                      ("B woop_mma", lambda: woop(a["w"], a["x"]))):
         ms = timed_ms(fn, reps, dev)
+        shape = ""
+        if dev.type == "cuda":
+            s = launch_shape(name.split()[1], R, chunks, dev)
+            shape = (f"  grid {s['grid']} cluster {s['cluster']} x "
+                     f"{s['threads']} threads, {s['blocks_per_sm']} "
+                     f"blocks/SM")
         print(f"{name}: {ms * 1e3:9.1f} us/pass  {pairs / ms / 1e6:7.2f} "
-              f"Gpairs/s", flush=True)
+              f"Gpairs/s{shape}", flush=True)

@@ -397,8 +397,11 @@ def test_cuda_oracle_and_diff_render_run_on_the_card():
 @pytest.mark.gpu
 def test_cuda_probe_kernels_against_their_plain_versions():
     """P1 and P2 A bit-equal to their plain versions (P1 at every shape of
-    the probe, 512 iterations; P2 A at 2 chunks with a degenerate row); P2 B
-    (tensor cores) within ``r5_mxu.woop_agreement``'s limits at 4 chunks."""
+    the probe, 512 iterations; P2 A at 1, 2, 7 and 64 chunks with a
+    degenerate row, and at 1000 rays, not a multiple of a block's); P2 B
+    (tensor cores) within ``r5_mxu.woop_agreement``'s limits at 1, 4, 7 and
+    64 chunks and at 1000 rays.  Chunk counts below the cluster's size leave
+    blocks an empty slice; 7 does not divide.  Each call is one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rt_torch.probes import lane_gather, launch_counts, r5_mxu
@@ -409,20 +412,47 @@ def test_cuda_probe_kernels_against_their_plain_versions():
         tab, idx = torch.from_numpy(tab).cuda(), torch.from_numpy(idx).cuda()
         assert _bit_equal(lane_gather.lane_gather(tab, idx, 512),
                           lane_gather.lane_gather_plain(tab, idx, 512))
-    arrays = r5_mxu.inputs(4)
+    assert launch_counts()["lane_gather"] == before["lane_gather"] + 3
+
+    def one_launch(name, fn):
+        n = launch_counts()[name]
+        out = fn()
+        assert launch_counts()[name] == n + 1, name
+        return out
+
+    arrays = r5_mxu.inputs(64)
     arrays["tri"][5, 3:6] = 0.0
     a = r5_mxu.to_device(arrays, "cuda")
-    tri = a["tri"][:2 * r5_mxu.CHUNK].contiguous()
-    assert _bit_equal(r5_mxu.mt_scan(tri, a["o"], a["d"]),
-                      r5_mxu.mt_scan_plain(tri, a["o"], a["d"]))
-    t = r5_mxu.woop(a["w"], a["x"])
-    t_ref, win = r5_mxu.woop_plain(a["w"], a["x"], winner=True)
-    agree = r5_mxu.woop_agreement(t, t_ref, a["w"], a["x"], win)
-    assert agree["ok"], agree
-    after = launch_counts()
-    assert after["lane_gather"] == before["lane_gather"] + 3
-    assert after["mt_scan"] == before["mt_scan"] + 1
-    assert after["woop_mma"] == before["woop_mma"] + 1
+    o1000 = a["o"].reshape(3, -1)[:, :1000].contiguous()
+    d1000 = a["d"].reshape(3, -1)[:, :1000].contiguous()
+    for n_chunks, o, d in ((1, a["o"], a["d"]), (2, a["o"], a["d"]),
+                           (7, a["o"], a["d"]), (64, a["o"], a["d"]),
+                           (7, o1000, d1000)):
+        tri = a["tri"][:n_chunks * r5_mxu.CHUNK].contiguous()
+        t = one_launch("mt_scan", lambda: r5_mxu.mt_scan(tri, o, d))
+        assert t.shape == o.shape[1:], (n_chunks, t.shape)
+        assert _bit_equal(t, r5_mxu.mt_scan_plain(tri, o, d)), n_chunks
+    for n_chunks, rays in ((1, r5_mxu.R), (4, r5_mxu.R), (7, r5_mxu.R),
+                           (64, r5_mxu.R), (7, 1000)):
+        w = a["w"][:n_chunks]
+        x = a["x"][:rays].contiguous()
+        t = one_launch("woop_mma", lambda: r5_mxu.woop(w, x))
+        t_ref, win = r5_mxu.woop_plain(w, x, winner=True)
+        agree = r5_mxu.woop_agreement(t, t_ref, w, x, win)
+        assert agree["ok"], (n_chunks, rays, agree)
+        assert 0.02 < agree["hit_share"] < 1.0, (n_chunks, agree)
+
+
+@pytest.mark.gpu
+def test_cuda_probe_reciprocal_equals_ieee_division_on_every_float():
+    """Both P2 kernels take 1 / x through a fast path written out, the slow
+    path's branch shared by several x: on every 32-bit pattern it gives the
+    bits of 1.0f / x compiled with IEEE division."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.probes import r5_mxu
+
+    assert r5_mxu.reciprocal_mismatches("cuda") == 0
 
 
 @pytest.mark.gpu

@@ -261,3 +261,143 @@ def test_woop_agreement_takes_other_summation_orders_at_64_chunks(mode):
     assert agree["hit_miss_differ"] == 0.0
     assert 1e-4 < agree["max_rel"] < 1e-3
     assert 0 < agree["share_over_rel_limit"] < 0.005
+
+
+# ---------------------------------------------------------------------------
+# the split both kernels rely on: the least over slices of the chunks
+# ---------------------------------------------------------------------------
+
+def _chunk_slices(n_chunks, cluster):
+    """The chunks each block of a cluster takes in both kernels
+    (``csrc/probes.cu:slice_of``): block r of ``cluster`` takes
+    r * n // cluster up to (r + 1) * n // cluster."""
+    return [(r * n_chunks // cluster, (r + 1) * n_chunks // cluster)
+            for r in range(cluster)]
+
+
+def _rays_of_2048(a):
+    """The first 2048 of the tool's rays: o, d (3, 8, 256), x (2048, 8)."""
+    return (torch.from_numpy(a["o"][:, :8].copy()),
+            torch.from_numpy(a["d"][:, :8].copy()),
+            torch.from_numpy(a["x"][:2048].copy()))
+
+
+def test_chunk_slices_cover_the_chunks_in_order():
+    assert _chunk_slices(64, 8) == [(8 * r, 8 * r + 8) for r in range(8)]
+    assert _chunk_slices(7, 8) == [(0, 0), (0, 1), (1, 2), (2, 3),
+                                      (3, 4), (4, 5), (5, 6), (6, 7)]
+    for n, cl in ((1, 8), (2, 4), (5, 2), (13, 8), (64, 2)):
+        s = _chunk_slices(n, cl)
+        assert s[0][0] == 0 and s[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(s, s[1:]))
+        assert max(b - a for a, b in s) == -(-n // cl)
+
+
+@pytest.mark.parametrize("n_chunks,cluster", [(7, 8), (8, 8), (5, 2), (3, 4)])
+def test_mt_scan_least_over_chunk_slices_is_the_whole_scan_bitwise(n_chunks,
+                                                                   cluster):
+    """A degenerate row (det = 0), and ray 0 aimed at row 10 at t ~ 1e-3
+    with row 10 copied into the last chunk: two rows give its least t
+    exactly, in two slices.  torch.minimum over the slices' plain scans
+    (FLT_MAX for an empty slice) equals the plain scan of the whole table
+    bit for bit."""
+    a = tmx.inputs(n_chunks)
+    tri = a["tri"]
+    tri[5, 3:6] = 0.0
+    v0, e1, e2 = tri[10, 0:3], tri[10, 3:6], tri[10, 6:9]
+    d0 = np.cross(e1, e2).astype(np.float32)
+    a["o"][:, 0, 0] = v0 + np.float32(0.3) * e1 + np.float32(0.3) * e2 \
+        - np.float32(1e-3) * d0
+    a["d"][:, 0, 0] = d0
+    tri[(n_chunks - 1) * tmx.CHUNK + 3] = tri[10]
+    o, d, _ = _rays_of_2048(a)
+    tri = torch.from_numpy(tri)
+    whole = tmx.mt_scan_plain(tri, o, d)
+    one = tmx.mt_scan_plain(tri[10:11], o, d)
+    assert whole[0, 0] == one[0, 0] and whole[0, 0] < 0.01   # the tie wins
+    parts = [tmx.mt_scan_plain(tri[c0 * tmx.CHUNK:c1 * tmx.CHUNK], o, d)
+             for c0, c1 in _chunk_slices(n_chunks, cluster)]
+    least = functools.reduce(torch.minimum, parts)
+    assert torch.equal(least.view(torch.int32), whole.view(torch.int32))
+    hit = whole != tmx._FLT_MAX
+    assert 0.05 < float(hit.float().mean()) < 0.95
+    if n_chunks < cluster:
+        assert bool((parts[0] == tmx._FLT_MAX).all())       # empty slice
+
+
+@pytest.mark.parametrize("n_chunks,cluster", [(7, 8), (8, 8), (5, 2), (3, 4)])
+def test_woop_least_over_chunk_slices_is_the_whole_product_bitwise(n_chunks,
+                                                                   cluster):
+    """A column with dz = 0, and the first hitting ray's winning triangle
+    copied into another chunk: the same eight products summed in the same
+    order give that ray the same least t twice.  torch.minimum over the slices' plain versions equals
+    the plain version over all chunks bit for bit."""
+    a = tmx.inputs(n_chunks)
+    a["w"][min(1, n_chunks - 1), :, 5 * tmx.CHUNK + 3] = 0.0
+    _, _, x = _rays_of_2048(a)
+    w = tmx.as_bf16(a["w"])
+    whole, win = tmx.woop_plain(w, x, winner=True)
+    r = int(torch.nonzero(win >= 0)[0, 0])
+    c, j = divmod(int(win[r]), tmx.CHUNK)
+    other = (c + n_chunks // 2 + 1) % n_chunks
+    if other == c:
+        other = (c + 1) % n_chunks
+    cols = [g * tmx.CHUNK + j for g in range(6)]
+    dup = [g * tmx.CHUNK + (j + 5) % tmx.CHUNK for g in range(6)]
+    wd = w.clone()
+    wd[other][:, dup] = w[c][:, cols]
+    whole = tmx.woop_plain(wd, x)
+    again = tmx.woop_plain(wd[other:other + 1], x)
+    assert whole[r, 0] == again[r, 0] < tmx._FLT_MAX           # the tie wins
+    parts = [tmx.woop_plain(wd[c0:c1], x)
+             for c0, c1 in _chunk_slices(n_chunks, cluster)]
+    least = functools.reduce(torch.minimum, parts)
+    assert torch.equal(least.view(torch.int32), whole.view(torch.int32))
+    assert 0.05 < float((whole != tmx._FLT_MAX).float().mean()) < 0.95
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN2rt14mt_scan_kernelILi2ELi512ELi2ELi8EEEvPKfS2_S2_Pfii
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+                                                                 /* 0x000fe40000000800 */
+.L_x_1:
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;       /* 0x0000000102027810 */
+.L_x_0:
+        /*0020*/                   LDS.128 R4, [R3] ;            /* 0x0000000003047984 */
+        /*0030*/               @P0 BRA `(.L_x_2) ;               /* 0x0000000000f08947 */
+        /*0040*/                   MOV R0, R4 ;                  /* 0x0000000000f08947 */
+        /*0050*/                   CALL.REL.NOINC `(.L_x_9) ;    /* 0x0000000000f08947 */
+        /*0060*/                   BRA `(.L_x_3) ;               /* 0x0000000000f08947 */
+.L_x_2:
+        /*0070*/                   MUFU.RCP R5, R4 ;             /* 0x0000000000f08947 */
+.L_x_3:
+        /*0080*/                   FMUL R5, R4, R6 ;             /* 0x0000000604057220 */
+        /*0090*/              @!P1 BRA `(.L_x_0) ;               /* 0x0000000000f08947 */
+        /*00a0*/               @P1 BRA `(.L_x_1) ;               /* 0x0000000000e81947 */
+        /*00b0*/                   EXIT ;                        /* 0x000000000000794d */
+.L_x_4:
+        /*00c0*/                   BRA `(.L_x_4);                /* 0xfffffffc00fc7947 */
+.L_x_9:
+        /*00d0*/                   RET.REL.NODEC R2 `(_ZN2rt14mt_scan_kernel) ;
+		Function : _ZN2rt15woop_mma_kernelILi8ELi4ELi1ELi1EEEvPKtPKfPfii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;        /* 0x00000a0000017a02 */
+        /*0010*/                   HMMA.1688.F32.BF16 R4, R8, R12, RZ ;
+        /*0020*/                   BRA 0x10 ;                    /* 0xfffffffc00fc7947 */
+"""
+
+
+def test_loops_in_sass_counts_innermost_loops():
+    """The innermost loop of each kernel of a listing in cuobjdump's form
+    (branch targets as labels or as addresses) and the slow path a branch
+    in it skips (the span that holds a CALL); an outer loop and the
+    one-instruction trap after EXIT are not the body."""
+    from rt_torch.kernels import _build
+
+    loops = _build.loops_in_sass(_SASS)
+    assert loops == {
+        "mt_scan_kernel<2, 512, 2, 8>": [
+            dict(instructions=8, slow_path=3),
+            dict(instructions=1, slow_path=0)],
+        "woop_mma_kernel<8, 4, 1, 1>": [dict(instructions=2, slow_path=0)]}
