@@ -44,6 +44,11 @@ Suzanne timed.  Every phase prints one JSON line; any failure raises, so the
 exit code is non-zero and no result line is printed.  Needs no network and
 starts no process that outlives it.
 
+The probes are also held past the tools' sizes: lane_gather at 4 x 1500
+(wider than one block's threads), mt_scan at 301 chunks and woop_mma at 600
+(each block's slice staged in pieces).  wave_raygen's entry gives an empty
+kernel's time on its grid beside its own.
+
 The flat sphere kernels (spheres, spheres_record) are also held on frames
 padded to the tile (rtiow_one_sphere's 225 rows to 232) and replayed twice
 from a CUDA graph, each replay against the plain version's image.
@@ -297,27 +302,39 @@ def _plain_timed(fn):
 
 
 def compare_raygen(size: int, reps: int):
-    """K4 on Suzanne's camera at size x size against its plain version."""
-    sd = scenes.scene_suzanne(size, size, device=DEV)
-    th, tw = dispatch.DEFAULT_TILE
-    cam_row = dispatch.pack_camera(sd.camera)
-    times = torch.tensor([1000], dtype=torch.int32, device=DEV)
-    kw = dict(height=size, width=size, height_pad=size, width_pad=size,
-              normalize_defocus_dir=sd.config.normalize_defocus_dir)
-    run = lambda: tris_kernel.wave_raygen(cam_row, times, 0, th=th, tw=tw,
-                                          **kw)
+    """K4 on Suzanne's camera at size x size against its plain version,
+    and beside its time from a graph replay: an empty kernel on its own
+    grid and on the tile grid (one block a tile), the fixed costs of such
+    launches, a fill of its bytes (the card's write rate for them with the
+    L2 warm), and the wrapper's cost on the host."""
+    args = measure.raygen_args(size, DEV)
+    kw = args.kw
+    th, tw = kw["th"], kw["tw"]
+    plain_kw = {k: v for k, v in kw.items() if k not in ("th", "tw")}
+    run = lambda: tris_kernel.wave_raygen(args.cam_row, args.times, 0, **kw)
     k_out = run()
-    p_out, plain_ms = _plain_timed(
-        lambda: tris_kernel.wave_raygen_plain(cam_row, times, 0, **kw))
+    p_out, plain_ms = _plain_timed(lambda: tris_kernel.wave_raygen_plain(
+        args.cam_row, args.times, 0, **plain_kw))
     n = size * size
-    rec = _wave_record("wave_raygen", 637, sd.name, size, th, tw, k_out,
-                       p_out, plain_ms)
+    rec = _wave_record("wave_raygen", 637, args.sd.name, size, th, tw,
+                       k_out, p_out, plain_ms)
+    *grid, threads = tris_kernel.raygen_launch(1, size, size)
+    if (tuple(grid), threads) != (tris_kernel.raygen_grid(1, size, size),
+                                  tris_kernel.RAYGEN_THREADS):
+        raise SystemExit(f"wave_raygen: launch {grid} x {threads} is not "
+                         "the one tris_kernel.raygen_pixels models")
+    blocks = grid[0] * grid[1] * grid[2]
+    rec["grid"] = grid + [threads]
     # the kernel runs for a few microseconds: read it from a graph replay,
     # and the wrapper's cost on the host beside it
     rec["ms"] = _timed_graph(run, reps)
+    rec["empty_ms"] = measure.empty_ms(blocks, threads, reps)
+    rec["empty_tile_grid_ms"] = measure.empty_ms(n // (th * tw), th * tw,
+                                                 reps)
+    planes = torch.empty(8 * n, dtype=torch.float32, device=DEV)
+    rec["fill_ms"] = _timed_graph(lambda: planes.fill_(1.0), reps)
     rec["wrapper_ms"] = _timed(lambda i: run(), reps)
-    rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
-        [], 20 * 4 + 4 + 8 * n * 4, extra_flops=n * FLOPS_PER_RAYGEN)
+    rec["bound_ms"], rec["bound_by"], rec["flops"] = measure.raygen_bound(n)
     return rec
 
 
@@ -736,35 +753,45 @@ def max_sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def _p2_shape(name, kernel, pairs):
-    """A P2 kernel's launch (``r5_mxu.launch_shape``), registers (``-Xptxas
-    -v``), the SASS instructions of its innermost loop, those a pair runs
-    (the loop's less the slow path that a branch skips, the IEEE division's
-    for x of an extreme exponent: these inputs take none), and the issue
-    floor they give: a pair's instructions for every 32 pairs (a warp
-    instruction), four a cycle on each SM at the card's top clock."""
+def _p2_shape(name, kernel, pairs, n_chunks=64):
+    """A P2 kernel's launch (``r5_mxu.launch_shape``) at ``n_chunks``,
+    registers (``-Xptxas -v``) of the instance that launch runs (a slice
+    in one piece or in several), the SASS instructions of its innermost
+    loop, those a pair runs (the loop's less the slow path that a branch
+    skips, the IEEE division's for x of an extreme exponent: these inputs
+    take none), and the issue floor they give: a pair's instructions for
+    every 32 pairs (a warp instruction), four a cycle on each SM at the
+    card's top clock."""
     from rt_torch.probes import r5_mxu
 
     lib = _build.load()
-    shape = r5_mxu.launch_shape(name, r5_mxu.R, 64, DEV)
+    shape = r5_mxu.launch_shape(name, r5_mxu.R, n_chunks, DEV)
+    want = r5_mxu.piece_plan(name, n_chunks)
+    if (shape["piece"], shape["pieces"]) != want:
+        raise SystemExit(f"probes: {name} at {n_chunks} chunks stages "
+                         f"{shape['piece']} chunks in {shape['pieces']} "
+                         f"turns, r5_mxu.piece_plan says {want}")
+    # the instance with the piece loop where the slice is in pieces
+    tail = ", true>" if shape["pieces"] > 1 else ", false>"
     ptxas = [u for u in _build.ptxas_usage(lib.build_log)
-             if u["kernel"].startswith(kernel + "<")]
-    loops = [v for k, v in _build.sass_loops(lib.paths["probes"]).items()
-             if k.startswith(kernel + "<")]
-    if not loops or not loops[0]:
-        raise SystemExit(f"probes: no loop of {kernel} in the SASS")
-    body = loops[0][0]
+             if u["kernel"].startswith(kernel + "<")
+             and u["kernel"].endswith(tail)]
+    instance = ptxas[0]["kernel"] if len(ptxas) == 1 else None
+    loops = _build.sass_loops(lib.paths["probes"]).get(instance)
+    if not loops:
+        raise SystemExit(f"probes: no one {kernel}<..{tail} in the build")
+    body = loops[0]
     per_pair = (body["instructions"] - body["slow_path"]) \
         / shape["pairs_per_turn"]
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     clock = max_sm_clock_mhz() * 1e6
     floor_ms = pairs / 32 * per_pair / (sms * 4 * clock) * 1e3
-    return dict(launch=shape, sms=sms, max_sm_clock_mhz=clock / 1e6,
-                registers=ptxas[0]["registers"] if ptxas else None,
-                static_smem_bytes=ptxas[0]["smem_bytes"] if ptxas else None,
+    return dict(launch=shape, instance=instance, sms=sms,
+                max_sm_clock_mhz=clock / 1e6,
+                registers=ptxas[0]["registers"],
+                static_smem_bytes=ptxas[0]["smem_bytes"],
                 spill_bytes=(ptxas[0].get("spill_store_bytes", 0)
-                             + ptxas[0].get("spill_load_bytes", 0))
-                if ptxas else None,
+                             + ptxas[0].get("spill_load_bytes", 0)),
                 sass_loop=body, instructions_per_pair=per_pair,
                 issue_floor_ms=floor_ms)
 
@@ -781,17 +808,103 @@ def _one_launch(name, fn):
     return out
 
 
+# P1 beyond the tool's shapes: a width past the 1024 columns of one block
+WIDE_GATHER = (4, 1500)
+# P2 past what one block's shared memory holds of a slice on an H100: A at
+# 301 chunks, B at 600, each slice staged and scanned in pieces
+F2_CHUNKS = {"mt_scan": 301, "woop_mma": 600}
+
+
+def _gather_record(th, tw, link, sms):
+    """P1 at (th, tw) and the tool's 512 iterations against its plain
+    version and the NumPy reference; its time from a graph, ns per
+    dependent gather, and the least time of its work (``bound_parts``:
+    the chain of adds at the measured link, the bank wavefronts counted
+    from idx) beside the peak-rate bound of the kernels' line."""
+    from rt_torch.probes import lane_gather
+
+    iters = lane_gather.ITERS
+    tab_row, tab_np, idx_np = lane_gather.inputs(th, tw)
+    tab = torch.from_numpy(tab_np).to(DEV)
+    idx = torch.from_numpy(idx_np).to(DEV)
+    run = lambda: lane_gather.lane_gather(tab, idx, iters)
+    k = _one_launch("lane_gather", run)
+    p, plain_ms = _plain_timed(lambda: lane_gather.lane_gather_plain(
+        tab, idx, iters))
+    ref = torch.from_numpy(lane_gather.reference(tab_row, idx_np,
+                                                 iters)).to(DEV)
+    n = th * tw
+    flops = iters * n                 # one add a gather
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = 3 * n * 4 / PEAK_BYTES_PER_S * 1e3
+    ms = _timed_graph(run, 50)
+    parts = lane_gather.bound_parts(idx_np, iters, link["cycles_per_add"],
+                                    link["clock_mhz"], sms)
+    return dict(
+        name="lane_gather", route="cuda",
+        source="rt_torch/kernels/csrc/probes.cu",
+        replaces="tools/exp_lane_gather.py:39", shape=[th, tw],
+        iters=iters, copies=lane_gather.copies(tw),
+        blocks=lane_gather.grid(th, tw),
+        max_abs_err=float((k - p).abs().max()),
+        elements_differ=int((k.view(torch.int32)
+                             != p.view(torch.int32)).sum()),
+        elements_differ_from_reference=int(
+            (k.view(torch.int32) != ref.view(torch.int32)).sum()),
+        ms=ms, ns_per_dependent_gather=ms * 1e6 / iters, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, library_ms=None, chain_link=link,
+        latency_bound=parts,
+        of_latency_bound=parts["bound_ms"] / ms)
+
+
+def _f2_records(n_chunks_a, n_chunks_b):
+    """F2: A at ``n_chunks_a`` and B at ``n_chunks_b`` chunks, each slice
+    staged and scanned in more than one piece: one launch each, A
+    bit-equal to its plain version, B within ``woop_agreement``; their
+    launches and times from a graph."""
+    from rt_torch.probes import r5_mxu
+
+    a = r5_mxu.to_device(r5_mxu.inputs(n_chunks_a), DEV)
+    run_a = lambda: r5_mxu.mt_scan(a["tri"], a["o"], a["d"])
+    k = _one_launch("mt_scan", run_a)
+    p = r5_mxu.mt_scan_plain(a["tri"], a["o"], a["d"])
+    err, frac = _diff((k.reshape(1, -1),), (p.reshape(1, -1),))
+    pairs = r5_mxu.R * n_chunks_a * r5_mxu.CHUNK
+    scan = dict(name="mt_scan", n_chunks=n_chunks_a, max_abs_err=err,
+                rays_differ=frac, ms=_timed_graph(run_a, 10),
+                **_p2_shape("mt_scan", "mt_scan_kernel", pairs, n_chunks_a))
+    b = r5_mxu.to_device(r5_mxu.inputs(n_chunks_b), DEV)
+    run_b = lambda: r5_mxu.woop(b["w"], b["x"])
+    k = _one_launch("woop_mma", run_b)
+    p, win = r5_mxu.woop_plain(b["w"], b["x"], winner=True)
+    pairs = r5_mxu.R * n_chunks_b * r5_mxu.CHUNK
+    woop = dict(name="woop_mma", n_chunks=n_chunks_b,
+                agreement=r5_mxu.woop_agreement(k, p, b["w"], b["x"], win),
+                ms=_timed_graph(run_b, 10),
+                **_p2_shape("woop_mma", "woop_mma_kernel", pairs,
+                            n_chunks_b))
+    short = [r["name"] for r in (scan, woop) if r["launch"]["pieces"] < 2]
+    if short:
+        raise SystemExit(f"probes: {short} staged its slice in one piece "
+                         "at the F2 chunk counts")
+    return [scan, woop]
+
+
 def phase_probes():
     """The probes of ``rt_torch.probes``: ``python -m rt_torch.probes
     lane_gather`` and ``r5_mxu`` at the tools' sizes (three shapes at 512
     iterations; 64 chunks, 200 repetitions) with the launch counts set to 0
     just before and read just after; then each kernel against its plain
-    version at those shapes.  Limits: P1 and P2 A bit-equal (P1 also to the
-    tool's NumPy reference); P2 B within ``r5_mxu.woop_agreement``.  Each
-    P2 kernel is one launch a pass on a grid of at least one block an SM;
-    its entry gives its launch, registers and resident blocks an SM, and
-    its SASS instructions a pair.  Returns (records, launches on the entry
-    point's run)."""
+    version at those shapes, P1 also at WIDE_GATHER and P2 at F2_CHUNKS
+    (slices staged in pieces).  Limits: P1 and P2 A bit-equal (P1 also to
+    the tool's NumPy reference); P2 B within ``r5_mxu.woop_agreement``.
+    Each P2 kernel is one launch a pass on a grid of at least one block an
+    SM; its entry gives its launch (pieces included), registers and
+    resident blocks an SM, and its SASS instructions a pair.  P1's entries
+    give its least time from the add chain's measured link and the bank
+    wavefronts.  Returns (records, launches on the entry point's run)."""
     from rt_torch import probes
     from rt_torch.probes import __main__ as probes_cli
     from rt_torch.probes import lane_gather, r5_mxu
@@ -806,33 +919,10 @@ def phase_probes():
                          f"kernel was not launched ({launches})")
 
     source = "rt_torch/kernels/csrc/probes.cu"
-    gather = []
-    for th, tw in lane_gather.SHAPES:
-        tab_row, tab_np, idx_np = lane_gather.inputs(th, tw)
-        tab = torch.from_numpy(tab_np).to(DEV)
-        idx = torch.from_numpy(idx_np).to(DEV)
-        run = lambda: lane_gather.lane_gather(tab, idx, lane_gather.ITERS)
-        k = run()
-        p, plain_ms = _plain_timed(lambda: lane_gather.lane_gather_plain(
-            tab, idx, lane_gather.ITERS))
-        ref = torch.from_numpy(lane_gather.reference(
-            tab_row, idx_np, lane_gather.ITERS)).to(DEV)
-        n = th * tw
-        flops = lane_gather.ITERS * n                 # one add a gather
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = 3 * n * 4 / PEAK_BYTES_PER_S * 1e3
-        gather.append(dict(
-            name="lane_gather", route="cuda", source=source,
-            replaces="tools/exp_lane_gather.py:39", shape=[th, tw],
-            iters=lane_gather.ITERS, max_abs_err=float((k - p).abs().max()),
-            elements_differ=int((k.view(torch.int32)
-                                 != p.view(torch.int32)).sum()),
-            elements_differ_from_reference=int(
-                (k.view(torch.int32) != ref.view(torch.int32)).sum()),
-            ms=_timed_graph(run, 50), plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            flops=flops, library_ms=None))
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    link = lane_gather.chain_link(DEV)
+    gather = [_gather_record(th, tw, link, sms)
+              for th, tw in lane_gather.SHAPES + (WIDE_GATHER,)]
 
     rcp_bad = r5_mxu.reciprocal_mismatches(DEV)
     if rcp_bad:
@@ -886,6 +976,7 @@ def phase_probes():
                                     bytes=t_bytes),
                 flops=mma_flops + epi_flops, library_ms=None,
                 **_p2_shape("woop_mma", "woop_mma_kernel", pairs))
+    f2 = _f2_records(F2_CHUNKS["mt_scan"], F2_CHUNKS["woop_mma"])
 
     ab = dict(n_chunks=n_chunks, rays=r5_mxu.R, pairs=pairs,
               a_us_per_pass=scan["ms"] * 1e3,
@@ -901,19 +992,23 @@ def phase_probes():
               f"{r5_mxu.HIT_MISS_LIMIT} of the rays, t within "
               f"{r5_mxu.REL_LIMIT} relative where both hit or within the "
               "rounding bound of the winner's sums", results=gather
-        + [scan, woop], seconds=time.perf_counter() - t0)
+        + [scan, woop], f2=f2, seconds=time.perf_counter() - t0)
     bad = [r for r in gather if r["elements_differ"]
            or r["elements_differ_from_reference"]]
-    if bad or scan["rays_differ"] or not agree["ok"]:
+    if bad or scan["rays_differ"] or not agree["ok"] \
+            or f2[0]["rays_differ"] or not f2[1]["agreement"]["ok"]:
         raise SystemExit(f"probes: a kernel disagrees with its plain "
                          f"version: lane_gather {bad}, mt_scan rays "
-                         f"{scan['rays_differ']}, woop_mma {agree}")
+                         f"{scan['rays_differ']}, woop_mma {agree}, at "
+                         f"{F2_CHUNKS} chunks: mt_scan rays "
+                         f"{f2[0]['rays_differ']}, woop_mma "
+                         f"{f2[1]['agreement']}")
     small = [r["name"] for r in (scan, woop)
              if r["launch"]["grid"] < r["sms"]]
     if small:
         raise SystemExit(f"probes: the grid of {small} leaves SMs idle")
-    # one entry a kernel: lane_gather at its largest shape
-    return [gather[-1], scan, woop], launches
+    # one entry a kernel: lane_gather at the tool's largest shape
+    return [gather[len(lane_gather.SHAPES) - 1], scan, woop], launches
 
 
 def phase_oracle():

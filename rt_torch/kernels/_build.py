@@ -41,8 +41,10 @@ _SIGNATURES = {
                           + [_PTR]),
         "rt_wave_bounce": ([_PTR] * 10 + [ctypes.c_longlong] + [_INT] * 10
                            + [_PTR]),
-        "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 8
+        "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 6
                            + [_PTR]),
+        "rt_wave_raygen_grid": [_INT] * 3 + [_PTR],
+        "rt_empty": [_INT, _INT, _PTR],
     },
     "spheres": {
         "rt_spheres": ([_PTR] * 3 + [ctypes.c_uint] + [_PTR] * 2
@@ -60,6 +62,7 @@ _SIGNATURES = {
         "rt_woop_mma": [_PTR] * 3 + [_INT] * 2 + [_PTR],
         "rt_probe_shape": [_INT] * 3 + [_PTR],
         "rt_probe_rcp_check": [_PTR] * 2,
+        "rt_probe_fadd_chain": [_PTR] * 3 + [_INT, _PTR],
     },
 }
 

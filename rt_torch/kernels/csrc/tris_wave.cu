@@ -18,9 +18,12 @@
 //                       pixel: every sample's bounces start from them)
 //
 // The first two call one trace_bounce() (tris_trace.cuh), as both TPU
-// kernels call _trace_bounce, so they agree per ray.  The raygen kernel calls the same
-// generate_ray() as wave_first_kernel; it writes 8 words per pixel and is
-// bound by bytes.
+// kernels call _trace_bounce, so they agree per ray.  The raygen kernel
+// calls the same generate_ray() as wave_first_kernel and writes 8 words a
+// pixel: bound by bytes (8.4 MB at 512x512, 2.5 us at 3.35 TB/s) and, near
+// that, by the issue of its IEEE divisions and square roots.  Its blocks
+// are strips of a row, not the tile, so that no thread divides its index
+// and a warp stores whole lines.
 //
 // What the TPU kernel does on (th, tw) planes with selects, this does with
 // one thread (the bounce kernel: 1 to 8 threads) per ray; one block is one
@@ -123,25 +126,34 @@ wave_first_kernel(
     if (TRACK_IDX) idx_out[i] = tid;
 }
 
-// grid (Wp/tw, Hp/th, F), block th*tw, as wave_first_kernel.  od holds 6
-// (F*Hp, Wp) planes: o(3) d(3).  Padding pixels are generated too.
-__global__ void wave_raygen_kernel(
-        CameraRow cam, const uint32_t* __restrict__ times, int row0,
-        int height, int width, int height_pad, int width_pad, int tw,
-        int normalize_defocus_dir, float* __restrict__ od,
-        float* __restrict__ pdy_out, uint32_t* __restrict__ state_out) {
-    const int ly = threadIdx.x / tw, lx = threadIdx.x % tw;
-    const int th = blockDim.x / tw;
-    const int row = blockIdx.y * th + ly;
-    const int col = blockIdx.x * tw + lx;
-    const size_t n = (size_t)gridDim.z * height_pad * width_pad;
-    const size_t i = ((size_t)blockIdx.z * height_pad + row) * width_pad + col;
+// K4's launch: a block is RAYGEN_THREADS consecutive columns of one row of
+// one frame, grid (ceil(Wp / RAYGEN_THREADS), Hp, F).  The frame and the row
+// come from the block's index, so no thread divides and the frame's time is
+// read first, and a warp's store is a whole 128-byte line of a plane.  The
+// render tile plays no part: no ray reads another's.  (Two or four pixels a
+// thread with 64- or 128-bit stores, and a flat grid that divides each
+// thread's index, ran slower at 512x512 on an H100: PERF.md.)
+constexpr int RAYGEN_THREADS = 128;
 
+// od holds 6 planes of n = F*Hp*Wp: o(3) d(3); pdy_out and state_out one
+// each.  A thread's pixel is generate_ray() of its (column, row + row0,
+// frame) as in wave_first_kernel; padding pixels are generated too.
+__global__ void __launch_bounds__(RAYGEN_THREADS)
+wave_raygen_kernel(CameraRow cam, const uint32_t* __restrict__ times,
+                   int row0, int height, int width, int height_pad,
+                   int width_pad, int normalize_defocus_dir,
+                   float* __restrict__ od, float* __restrict__ pdy_out,
+                   uint32_t* __restrict__ state_out) {
+    const unsigned col = blockIdx.x * RAYGEN_THREADS + threadIdx.x;
+    if (col >= (unsigned)width_pad) return;
+    const uint32_t time = __ldg(times + blockIdx.z);
+    const size_t n = (size_t)gridDim.z * height_pad * width_pad;
+    const size_t i =
+        ((size_t)blockIdx.z * height_pad + blockIdx.y) * width_pad + col;
     uint32_t state;
     Vec3 o, d;
-    generate_ray(cam, (uint32_t)col, (uint32_t)(row + row0), height, width,
-                 __ldg(times + blockIdx.z), normalize_defocus_dir != 0,
-                 state, o, d);
+    generate_ray(cam, col, blockIdx.y + (unsigned)row0, height, width, time,
+                 normalize_defocus_dir != 0, state, o, d);
     od[0 * n + i] = o.x;
     od[1 * n + i] = o.y;
     od[2 * n + i] = o.z;
@@ -151,6 +163,15 @@ __global__ void wave_raygen_kernel(
     pdy_out[i] = d.y;
     state_out[i] = state;
 }
+
+inline dim3 raygen_grid(int n_frames, int height_pad, int width_pad) {
+    return dim3((width_pad + RAYGEN_THREADS - 1) / RAYGEN_THREADS,
+                height_pad, n_frames);
+}
+
+// Nothing: the fixed cost of a launch of a given grid (chip_smoke.py reads
+// it beside K4).
+__global__ void empty_kernel() {}
 
 // grid: the first tiles of the stream (all n / tile of them, or those that
 // hold its live rays), block tile * L.  pay is (9, n): o(3) d(3) atten(3);
@@ -366,14 +387,34 @@ extern "C" int rt_wave_bounce(
 extern "C" int rt_wave_raygen(
         const float* cam, const uint32_t* times, int row0, float* od,
         float* pdy, uint32_t* state, int height, int width, int height_pad,
-        int width_pad, int n_frames, int th, int tw,
-        int normalize_defocus_dir, void* stream) {
+        int width_pad, int n_frames, int normalize_defocus_dir,
+        void* stream) {
+    if (height_pad < 1 || height_pad > 65535 || n_frames < 1
+            || n_frames > 65535 || width_pad < 1)
+        return (int)cudaErrorInvalidValue;
     rt::CameraRow row;
     for (int c = 0; c < 20; ++c) row.v[c] = cam[c];
-    dim3 grid(width_pad / tw, height_pad / th, n_frames);
-    rt::wave_raygen_kernel<<<grid, th * tw, 0, (cudaStream_t)stream>>>(
-        row, times, row0, height, width, height_pad, width_pad, tw,
+    rt::wave_raygen_kernel<<<rt::raygen_grid(n_frames, height_pad,
+                                             width_pad),
+                             rt::RAYGEN_THREADS, 0, (cudaStream_t)stream>>>(
+        row, times, row0, height, width, height_pad, width_pad,
         normalize_defocus_dir, od, pdy, state);
+    return (int)cudaGetLastError();
+}
+
+// K4's launch for F frames of Hp x Wp: out = grid x, y, z, threads a block
+extern "C" int rt_wave_raygen_grid(int n_frames, int height_pad,
+                                   int width_pad, int* out) {
+    const dim3 g = rt::raygen_grid(n_frames, height_pad, width_pad);
+    out[0] = (int)g.x;
+    out[1] = (int)g.y;
+    out[2] = (int)g.z;
+    out[3] = rt::RAYGEN_THREADS;
+    return 0;
+}
+
+extern "C" int rt_empty(int blocks, int threads, void* stream) {
+    rt::empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }
 

@@ -681,8 +681,10 @@ def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
 
     cam_row: (1, 20) f32 on the host.  times: (F,) int32 u32 bit patterns.
     Returns (od (6, n) f32: o, d; primary dy (n,) f32; post-raygen RNG
-    state (n,) int32), n = F*Hp*Wp in image order.  (th, tw) is the launch
-    geometry only: one block per tile, no ray reads another's.
+    state (n,) int32), n = F*Hp*Wp in image order: three views of one
+    (8, n) allocation.  (th, tw) must tile the padded frame, as for the
+    other wave kernels, but the kernel ignores it: no ray reads another's,
+    and it launches on its own grid of row strips (``raygen_grid``).
     """
     if times.device.type == "cpu":
         return wave_raygen_plain(
@@ -697,20 +699,66 @@ def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
     n_frames = times.shape[0]
     n = n_frames * height_pad * width_pad
     dev = times.device
-    od = torch.empty((6, n), dtype=torch.float32, device=dev)
-    pdy = torch.empty((n,), dtype=torch.float32, device=dev)
-    state = torch.empty((n,), dtype=torch.int32, device=dev)
+    # one allocation, and the stream's handle without a Stream object:
+    # the wrapper's host time is several times the kernel's (PERF.md)
+    planes = torch.empty((8, n), dtype=torch.float32, device=dev)
+    base = planes.data_ptr()
     cam = _cam_array(cam_row)
 
     lib = _build.load()
     code = lib.rt_wave_raygen(
-        cam.ctypes.data, times.data_ptr(), row0, od.data_ptr(),
-        pdy.data_ptr(), state.data_ptr(), height, width, height_pad,
-        width_pad, n_frames, th, tw, int(normalize_defocus_dir),
-        torch.cuda.current_stream(dev).cuda_stream)
+        cam.ctypes.data, times.data_ptr(), row0, base, base + 6 * 4 * n,
+        base + 7 * 4 * n, height, width, height_pad, width_pad, n_frames,
+        int(normalize_defocus_dir),
+        torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(lib, code, "wave_raygen")
     LAUNCHES["wave_raygen"] += 1
-    return od, pdy, state
+    return planes[0:6], planes[6], planes[7].view(torch.int32)
+
+
+# K4's launch (csrc/tris_wave.cu): a block is RAYGEN_THREADS consecutive
+# columns of one row of one frame
+RAYGEN_THREADS = 128
+
+
+def raygen_grid(n_frames: int, height_pad: int, width_pad: int) -> tuple:
+    """K4's grid for F frames of Hp x Wp pixels: (x, y, z) blocks."""
+    return -(-width_pad // RAYGEN_THREADS), height_pad, n_frames
+
+
+def raygen_launch(n_frames: int, height_pad: int, width_pad: int) -> tuple:
+    """K4's launch on the card, as its launcher computes it: (grid x, y,
+    z, threads a block)."""
+    import ctypes
+
+    from rt_torch.kernels import _build
+
+    lib = _build.load()
+    vals = (ctypes.c_int * 4)()
+    _build.check(lib, lib.rt_wave_raygen_grid(n_frames, height_pad,
+                                              width_pad, vals),
+                 "raygen_launch")
+    return tuple(vals)
+
+
+def raygen_pixels(n_frames: int, height_pad: int,
+                  width_pad: int) -> torch.Tensor:
+    """K4's map from threads to pixels, as its index arithmetic runs: for
+    each thread of the grid (``raygen_grid``, block by block) that takes a
+    pixel, the flat index it stores to and the (frame, row, column) it
+    generates the ray of: block (x, y, z), thread t takes column
+    x * RAYGEN_THREADS + t (none past Wp) of row y of frame z.  (pixels, 4)
+    int64."""
+    gx, gy, gz = raygen_grid(n_frames, height_pad, width_pad)
+    z, y, x, t = torch.meshgrid(
+        torch.arange(gz), torch.arange(gy), torch.arange(gx),
+        torch.arange(RAYGEN_THREADS), indexing="ij")
+    col = (x * RAYGEN_THREADS + t).reshape(-1)
+    row, f = y.reshape(-1), z.reshape(-1)
+    keep = col < width_pad
+    col, row, f = col[keep], row[keep], f[keep]
+    return torch.stack([(f * height_pad + row) * width_pad + col, f, row,
+                        col], dim=1)
 
 
 def wave_bounce(packed: PackedScene, tile_order, pay, state, active,

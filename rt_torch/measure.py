@@ -10,6 +10,10 @@
                                                   # device time goes
     python -m rt_torch.measure oracle [PATH]      # ms per frame, oracle
     python -m rt_torch.measure kernels [GROUP]    # ms per launch, K2-K10b
+    python -m rt_torch.measure raygen [SIZE]      # K4 beside an empty
+                                                  # kernel, a fill and a
+                                                  # copy of its bytes; its
+                                                  # wrapper's host cost
     python -m rt_torch.measure occupancy [PATH]   # live rays, tiles, warps
     python -m rt_torch.measure occupancy lucy_512 # the recorder's work per
                                                   # bounce (or dragon_512)
@@ -801,6 +805,135 @@ def _graph_ms(fn, reps: int) -> float:
     return _event_ms(graph.replay, 3) / reps
 
 
+def raygen_args(size: int = 512, device="cuda") -> SimpleNamespace:
+    """K4's arguments as ``chip_smoke.py`` gives them: Suzanne's camera at
+    size x size, one frame at time 1000, the default tile (which the
+    kernel's own grid ignores)."""
+    sd = scenes.scene_suzanne(size, size, device=device)
+    th, tw = dispatch.DEFAULT_TILE
+    times = torch.tensor([1000], dtype=torch.int32, device=device)
+    kw = dict(height=size, width=size, height_pad=size, width_pad=size,
+              th=th, tw=tw,
+              normalize_defocus_dir=sd.config.normalize_defocus_dir)
+    return SimpleNamespace(sd=sd, cam_row=dispatch.pack_camera(sd.camera),
+                           times=times, kw=kw)
+
+
+def raygen_bound(n: int):
+    """(bound ms, what bounds it, operations) of K4 on n pixels: the 8
+    planes it writes, the camera row and a time read once, and the
+    FLOPS_PER_RAYGEN operations of each primary ray."""
+    return bound([], 20 * 4 + 4 + 8 * n * 4, extra_flops=n * FLOPS_PER_RAYGEN)
+
+
+def empty_ms(blocks: int, threads: int, reps: int = 50) -> float | None:
+    """Device ms of an empty kernel on a grid of ``blocks`` x ``threads``
+    from a CUDA graph (``_graph_ms``): the fixed cost of such a launch.
+    None where the build has no empty kernel (an older tree's)."""
+    lib = _build.load()
+    if not hasattr(lib, "rt_empty"):
+        return None
+
+    def launch():
+        _build.check(lib, lib.rt_empty(
+            blocks, threads, torch.cuda.current_stream().cuda_stream),
+            "empty")
+    return _graph_ms(launch, reps)
+
+
+def _host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds of one fn() over ``calls`` calls after one (the
+    device's work, a few microseconds a call, queues behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def raygen(size: str = "512", reps: int = 50):
+    """K4 at size x size (one frame of Suzanne's camera): from CUDA graphs
+    of ``reps`` launches, twice in turns, K4, an empty kernel on the tile
+    grid (one block of th*tw threads a tile, K4's former launch) and
+    on K4's own grid, a fill of K4's bytes (8 planes) and a copy of them,
+    the card's own rates for those bytes with the 50 MB L2 warm; then the
+    wrapper's host cost and its parts by the host clock."""
+    card = _card()
+    n = int(size) ** 2
+    dev = torch.device("cuda")
+    args = raygen_args(int(size))
+    cam_row, times, kw = args.cam_row, args.times, args.kw
+    th, tw = kw["th"], kw["tw"]
+    run = lambda: tris_kernel.wave_raygen(cam_row, times, 0, **kw)
+    lib = _build.load()
+    grid = None
+    if hasattr(lib, "rt_wave_raygen_grid"):
+        *xyz, threads = tris_kernel.raygen_launch(1, int(size), int(size))
+        grid = [xyz[0] * xyz[1] * xyz[2], threads]
+    dst = torch.empty(8 * n, dtype=torch.float32, device=dev)
+    src = torch.zeros_like(dst)
+    ms = {}
+    for turn in range(2):
+        for name, fn in (
+                ("K4", run),
+                ("fill", lambda: dst.fill_(1.0)),
+                ("copy", lambda: dst.copy_(src))):
+            ms.setdefault(name, []).append(_graph_ms(fn, reps))
+        ms.setdefault("empty_tile_grid", []).append(
+            empty_ms(n // (th * tw), th * tw, reps))
+        if grid:
+            ms.setdefault("empty_k4_grid", []).append(
+                empty_ms(grid[0], grid[1], reps))
+    bound_ms, bound_by, flops = raygen_bound(n)
+    # the wrapper and its parts
+    cam = tris_kernel._cam_array(cam_row)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    planes = torch.empty((8, n), dtype=torch.float32, device=dev)
+    ptrs = (planes.data_ptr(), planes[6].data_ptr(), planes[7].data_ptr())
+    geom = (kw["height"], kw["width"], kw["height_pad"], kw["width_pad"], 1)
+    # this tree's C entry, or an older one that also took the tile
+    tile = (th, tw) if len(lib.rt_wave_raygen.argtypes) == 15 else ()
+    launch_args = (cam.ctypes.data, times.data_ptr(), 0, *ptrs, *geom, *tile,
+                   int(kw["normalize_defocus_dir"]), stream)
+    host = {
+        "wrapper": _host_us(run),
+        "cam_array": _host_us(lambda: tris_kernel._cam_array(cam_row)),
+        "cam_pointer": _host_us(lambda: cam.ctypes.data),
+        "empty_x3": _host_us(lambda: (
+            torch.empty((6, n), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))),
+        "empty_8n_views": _host_us(lambda: (lambda b: (
+            b[0:6], b[6], b[7].view(torch.int32)))(torch.empty(
+                (8, n), dtype=torch.float32, device=dev))),
+        "data_ptrs": _host_us(lambda: (planes.data_ptr(),
+                                       planes[6].data_ptr(),
+                                       planes[7].data_ptr())),
+        "stream": _host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "stream_raw": _host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "load": _host_us(_build.load),
+        "launch": _host_us(lambda: lib.rt_wave_raygen(*launch_args)),
+        "check": _host_us(lambda: _build.check(lib, 0, "wave_raygen")),
+        "checks": _host_us(lambda: (
+            tris_kernel._check_tile(th, tw, n // int(size), int(size)),
+            tris_kernel._check_block(th, tw),
+            tris_kernel._require(times, "times", torch.int32))),
+    }
+    host_by_events = _event_ms(run, reps)
+    print(json.dumps({
+        "measure": "raygen", "card": card, "size": [int(size)] * 2,
+        "pixels": n, "bytes": 8 * n * 4, "reps": reps, "grid": grid,
+        "tile_grid": [n // (th * tw), th * tw], "ms": ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "host_us": host, "wrapper_ms_by_events": host_by_events}),
+        flush=True)
+
+
 def sphere_frame_args(path: str, device="cuda", **config):
     """(packed tables, camera row, keyword arguments) of one frame of the
     named sphere path's kernel at the default tile, the frame padded to
@@ -836,6 +969,7 @@ def _sphere_ms(path: str, reps: int, bounces: int | None = None) -> float:
 
 
 KERNEL_GROUPS = ("all", "wave", "frame", "depth")
+RAYGEN_SIZES = ("128", "512", "1024")
 
 
 def kernels(group: str = "all", reps: int = 20):
@@ -1167,9 +1301,10 @@ def main(argv=None) -> int:
         return 1
     what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
             "lookup": lookup, "record": record, "oracle": oracle,
-            "kernels": kernels, "occupancy": occupancy}
+            "kernels": kernels, "occupancy": occupancy, "raygen": raygen}
     names = (FITS if argv[:1] in (["fit"], ["lookup"], ["record"])
              else KERNEL_GROUPS if argv[:1] == ["kernels"]
+             else RAYGEN_SIZES if argv[:1] == ["raygen"]
              else {**PATHS, **FITS} if argv[:1] == ["occupancy"] else PATHS)
     if (len(argv) not in (1, 2) or argv[0] not in what
             or (len(argv) == 2 and argv[1] not in names)):

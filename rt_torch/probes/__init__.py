@@ -19,6 +19,11 @@ import time
 
 import torch
 
+# the shared memory one block may hold on an H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin): the probes' launchers size
+# their staging by the card's own value, and these mirrors by this one
+SMEM_OPTIN = 232448
+
 
 def launch_counts() -> dict:
     """Kernel launches of the probes so far, by wrapper name."""

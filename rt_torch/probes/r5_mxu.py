@@ -23,7 +23,9 @@ that share a group of rays and take the least of the blocks' partial bests
 (``launch_shape`` reads the launch).  That is exact: each result is
 min(FLT_MAX, least valid t) over its rows in any order, so
 ``torch.minimum`` of the plain versions over slices of the chunks is the
-plain version over all of them, bit for bit.
+plain version over all of them, bit for bit.  A slice too large for a
+block's shared memory is staged and scanned in pieces (``piece_plan``), by
+the same reasoning.
 
 A wrapper launches its kernel on a CUDA tensor and runs its plain version on
 a CPU tensor; ``LAUNCHES`` counts kernel launches, nothing else.
@@ -45,7 +47,7 @@ import torch
 
 from rt_torch.core import vecmath as vm
 from rt_torch.kernels.tris_kernel import _require
-from rt_torch.probes import device_line, timed_ms
+from rt_torch.probes import SMEM_OPTIN, device_line, timed_ms
 
 TH, TW = 32, 256
 R = TH * TW
@@ -70,6 +72,12 @@ HIT_MISS_LIMIT = 1e-3
 _SUM_ULPS = 16 * 2.0 ** -24
 
 LAUNCHES = {"mt_scan": 0, "woop_mma": 0}
+
+# the kernels' launch (csrc/probes.cu): blocks a cluster, the bytes a
+# block stages a chunk and its static shared bytes (the partial bests)
+CLUSTER = {"mt_scan": 2, "woop_mma": 8}
+CHUNK_BYTES = {"mt_scan": CHUNK * 12 * 4, "woop_mma": 24 * 33 * 4}
+STATIC_BYTES = {"mt_scan": 512 * 4, "woop_mma": 64 * 4}
 
 
 def inputs(n_chunks: int, seed: int = 0) -> dict:
@@ -217,24 +225,44 @@ def woop(w: torch.Tensor, x: torch.Tensor):
     return out
 
 
+def piece_plan(kernel: str, n_chunks: int,
+               smem_optin: int = SMEM_OPTIN) -> tuple:
+    """(piece, pieces) as the launcher plans them: a block stages its whole
+    slice (at most ceil(n_chunks / cluster) chunks) where it fits in
+    ``smem_optin`` bytes beside the static ones, else the slice in
+    ``pieces`` turns of at most ``piece`` chunks, as even as they come."""
+    most = (smem_optin - STATIC_BYTES[kernel]) // CHUNK_BYTES[kernel]
+    slice_ = -(-n_chunks // CLUSTER[kernel])
+    pieces = 1 if slice_ <= most else -(-slice_ // most)
+    return -(-slice_ // pieces), pieces
+
+
+def pieces_of(first: int, last: int, piece: int) -> list:
+    """The chunks [c0, c1) of each turn of a block whose slice is
+    [first, last), ``piece`` at a time (the kernels' piece loop)."""
+    return [(c0, min(c0 + piece, last)) for c0 in range(first, last, piece)]
+
+
 def launch_shape(kernel: str, n_rays: int = R, n_chunks: int = 64,
                  device="cuda") -> dict:
     """The launch of ``mt_scan`` or ``woop_mma`` at these sizes and the
     card's occupancy for it: grid (blocks), cluster (blocks a cluster, each
     a slice of the chunks), threads a block, dynamic shared bytes, resident
     blocks an SM and clusters resident at once (the CUDA occupancy API),
-    pairs a thread (lane) takes in one turn of its innermost loop."""
+    pairs a thread (lane) takes in one turn of its innermost loop, chunks
+    a block stages at once and the turns of staging at most
+    (``piece_plan``)."""
     from rt_torch.kernels import _build
 
     lib = _build.load()
-    vals = (ctypes.c_int * 7)()
+    vals = (ctypes.c_int * 9)()
     with torch.cuda.device(torch.device(device)):
         code = lib.rt_probe_shape({"mt_scan": 0, "woop_mma": 1}[kernel],
                                   n_rays, n_chunks, vals)
     _build.check(lib, code, f"launch_shape({kernel})")
     return dict(zip(("grid", "cluster", "threads", "dynamic_smem_bytes",
-                     "blocks_per_sm", "active_clusters", "pairs_per_turn"),
-                    vals))
+                     "blocks_per_sm", "active_clusters", "pairs_per_turn",
+                     "piece", "pieces"), vals))
 
 
 def reciprocal_mismatches(device="cuda") -> int:
@@ -309,6 +337,7 @@ def main(device="cuda", reps: int = 200, chunks: int = 64) -> None:
             s = launch_shape(name.split()[1], R, chunks, dev)
             shape = (f"  grid {s['grid']} cluster {s['cluster']} x "
                      f"{s['threads']} threads, {s['blocks_per_sm']} "
-                     f"blocks/SM")
+                     f"blocks/SM, slices staged in {s['pieces']} piece(s) "
+                     f"of <= {s['piece']} chunks")
         print(f"{name}: {ms * 1e3:9.1f} us/pass  {pairs / ms / 1e6:7.2f} "
               f"Gpairs/s{shape}", flush=True)

@@ -62,7 +62,8 @@ def _bit_equal(a, b):
 
 @pytest.mark.gpu
 def test_cuda_raygen_kernel_equals_plain_version_bitwise():
-    """K4 on two frames of Suzanne's camera, a band offset included."""
+    """K4 on two frames of Suzanne's camera, a band offset included, and
+    on three frames whose padded width (69) ends inside a block's strip."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sd = tscenes.scene_suzanne(128, 128, device="cuda")
@@ -74,6 +75,18 @@ def test_cuda_raygen_kernel_equals_plain_version_bitwise():
     k = ttk.wave_raygen(cam_row, times, 64, th=8, tw=16, **args)
     p = ttk.wave_raygen_plain(cam_row, times, 64, **args)
     assert ttk.LAUNCHES["wave_raygen"] == before + 1
+    for a, b in zip(k, p):
+        assert _bit_equal(a, b)
+    # a padded width of 69 pixels, not a multiple of a block's strip of
+    # columns, and three frames of 64 rows
+    times = torch.tensor([TIME, TIME + 10, TIME + 20], dtype=torch.int32,
+                         device="cuda")
+    args = dict(height=33, width=69, height_pad=64, width_pad=69,
+                normalize_defocus_dir=False)
+    assert 69 % ttk.RAYGEN_THREADS
+    k = ttk.wave_raygen(cam_row, times, 5, th=32, tw=1, **args)
+    p = ttk.wave_raygen_plain(cam_row, times, 5, **args)
+    assert ttk.LAUNCHES["wave_raygen"] == before + 2
     for a, b in zip(k, p):
         assert _bit_equal(a, b)
 
@@ -397,22 +410,35 @@ def test_cuda_oracle_and_diff_render_run_on_the_card():
 @pytest.mark.gpu
 def test_cuda_probe_kernels_against_their_plain_versions():
     """P1 and P2 A bit-equal to their plain versions (P1 at every shape of
-    the probe, 512 iterations; P2 A at 1, 2, 7 and 64 chunks with a
-    degenerate row, and at 1000 rays, not a multiple of a block's); P2 B
-    (tensor cores) within ``r5_mxu.woop_agreement``'s limits at 1, 4, 7 and
-    64 chunks and at 1000 rays.  Chunk counts below the cluster's size leave
-    blocks an empty slice; 7 does not divide.  Each call is one launch."""
+    the probe, 512 iterations, and at a width past 1024 and widths and
+    iteration counts that are not multiples of 4; P2 A at 1, 2, 7 and 64
+    chunks with a degenerate row, at 1000 rays, not a multiple of a
+    block's, and at 301 and 600 chunks, each slice in pieces); P2 B
+    (tensor cores) within ``r5_mxu.woop_agreement``'s limits at 1, 4, 7,
+    64 and 600 chunks (in pieces) and at 1000 rays.  Chunk counts below
+    the cluster's size leave blocks an empty slice; 7 does not divide.
+    Each call is one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rt_torch.probes import lane_gather, launch_counts, r5_mxu
 
     before = launch_counts()
-    for th, tw in lane_gather.SHAPES:
+    # the tool's shapes; a width past 1024 columns (four copies of the
+    # row); widths not a multiple of 4 (the row once), iterations that end
+    # inside a 128-bit load or before the loads in flight, and indices
+    # past the width and below 0
+    cases = [(th, tw, 512) for th, tw in lane_gather.SHAPES]
+    cases += [(4, 1500, 512), (3, 1001, 37), (2, 7, 3), (5, 96, 0)]
+    for th, tw, iters in cases:
         _, tab, idx = lane_gather.inputs(th, tw)
         tab, idx = torch.from_numpy(tab).cuda(), torch.from_numpy(idx).cuda()
-        assert _bit_equal(lane_gather.lane_gather(tab, idx, 512),
-                          lane_gather.lane_gather_plain(tab, idx, 512))
-    assert launch_counts()["lane_gather"] == before["lane_gather"] + 3
+        if iters == 37:
+            idx = idx * 3 - 5 * tw
+        assert _bit_equal(lane_gather.lane_gather(tab, idx, iters),
+                          lane_gather.lane_gather_plain(tab, idx, iters)), \
+            (th, tw, iters)
+    assert launch_counts()["lane_gather"] == before["lane_gather"] \
+        + len(cases)
 
     def one_launch(name, fn):
         n = launch_counts()[name]
@@ -425,22 +451,38 @@ def test_cuda_probe_kernels_against_their_plain_versions():
     a = r5_mxu.to_device(arrays, "cuda")
     o1000 = a["o"].reshape(3, -1)[:, :1000].contiguous()
     d1000 = a["d"].reshape(3, -1)[:, :1000].contiguous()
+    # past 300 (A) and 584 (B) chunks a block's slice no longer fits in
+    # its shared memory and is staged and scanned in pieces
+    wide = r5_mxu.to_device(r5_mxu.inputs(600), "cuda")
     for n_chunks, o, d in ((1, a["o"], a["d"]), (2, a["o"], a["d"]),
                            (7, a["o"], a["d"]), (64, a["o"], a["d"]),
-                           (7, o1000, d1000)):
-        tri = a["tri"][:n_chunks * r5_mxu.CHUNK].contiguous()
+                           (7, o1000, d1000), (301, wide["o"], wide["d"]),
+                           (600, wide["o"], wide["d"])):
+        src = wide if n_chunks > 64 else a
+        tri = src["tri"][:n_chunks * r5_mxu.CHUNK].contiguous()
         t = one_launch("mt_scan", lambda: r5_mxu.mt_scan(tri, o, d))
         assert t.shape == o.shape[1:], (n_chunks, t.shape)
         assert _bit_equal(t, r5_mxu.mt_scan_plain(tri, o, d)), n_chunks
+        shape = r5_mxu.launch_shape("mt_scan", o[0].numel(), n_chunks)
+        assert (shape["piece"], shape["pieces"]) == r5_mxu.piece_plan(
+            "mt_scan", n_chunks), (n_chunks, shape)
+        assert (shape["pieces"] > 1) == (n_chunks > 300), (n_chunks, shape)
     for n_chunks, rays in ((1, r5_mxu.R), (4, r5_mxu.R), (7, r5_mxu.R),
-                           (64, r5_mxu.R), (7, 1000)):
-        w = a["w"][:n_chunks]
-        x = a["x"][:rays].contiguous()
+                           (64, r5_mxu.R), (7, 1000), (600, r5_mxu.R)):
+        src = wide if n_chunks > 64 else a
+        w = src["w"][:n_chunks]
+        x = src["x"][:rays].contiguous()
         t = one_launch("woop_mma", lambda: r5_mxu.woop(w, x))
         t_ref, win = r5_mxu.woop_plain(w, x, winner=True)
         agree = r5_mxu.woop_agreement(t, t_ref, w, x, win)
         assert agree["ok"], (n_chunks, rays, agree)
-        assert 0.02 < agree["hit_share"] < 1.0, (n_chunks, agree)
+        # at 600 chunks every ray hits one of 19200 triangles
+        assert agree["hit_share"] > 0.02, (n_chunks, agree)
+        assert n_chunks > 64 or agree["hit_share"] < 1.0, (n_chunks, agree)
+        shape = r5_mxu.launch_shape("woop_mma", rays, n_chunks)
+        assert (shape["piece"], shape["pieces"]) == r5_mxu.piece_plan(
+            "woop_mma", n_chunks), (n_chunks, shape)
+        assert (shape["pieces"] > 1) == (n_chunks > 584), (n_chunks, shape)
 
 
 @pytest.mark.gpu

@@ -119,6 +119,83 @@ def test_lane_gather_plain_equals_tpu_probe_and_reference_bitwise(th, tw,
                                                           iters)))
 
 
+@pytest.mark.parametrize("th,tw", [(8, 128), (32, 256), (4, 1500), (3, 7),
+                                   (2, 33)])
+def test_lane_gather_column_split_takes_every_column_once(th, tw):
+    """P1's grid: blocks of THREADS columns of one row each; every column
+    of every row is taken by exactly one thread, past one block's width
+    too (1500)."""
+    taken = tlg.column_split(th, tw)
+    assert taken.shape == (th * tw, 2)
+    assert np.array_equal(np.unique(taken[:, 0] * tw + taken[:, 1]),
+                          np.arange(th * tw))
+    bx, by = tlg.grid(th, tw)
+    assert by == th and (bx - 1) * tlg.THREADS < tw <= bx * tlg.THREADS
+    assert tlg.copies(tw) == (4 if tw % 4 == 0 else 1)
+    assert tlg.copies(tlg.MAX_WIDTH) == 1
+
+
+def _staged_gather(tab, idx, iters):
+    """P1 as its kernel reads it: the row staged in V copies, copy k
+    holding row[(m + k) % tw] at m; the lane of a column whose run starts
+    at j reads copy j % V from j - j % V on in V-element loads that wrap at
+    tw, and adds the first iters elements in order (f32)."""
+    th, tw = tab.shape
+    v = tlg.copies(tw)
+    out = np.zeros((th, tw), np.float32)
+    for r, c in tlg.column_split(th, tw):
+        s = np.empty(v * tw, np.float32)
+        for k in range(v):
+            s[k * tw + (np.arange(tw) - k) % tw] = tab[r]
+        j = int(idx[r, c]) % tw
+        k = j % v
+        m, acc, taken = j - k, np.float32(0.0), 0
+        while taken < iters:
+            load = s[k * tw + m:k * tw + m + v]
+            for x in load[:iters - taken]:
+                acc = np.float32(acc + x)
+            taken += v
+            m = 0 if m + v == tw else m + v
+        out[r, c] = acc
+    return out
+
+
+@pytest.mark.parametrize("th,tw,iters", [(2, 128, 40), (2, 12, 31),
+                                         (2, 7, 9), (1, 1500, 6)])
+def test_lane_gather_staged_copies_give_the_reference_bitwise(th, tw, iters):
+    """The kernel's reads (``_staged_gather``: four shifted copies of the
+    row where tw is a multiple of 4, the row once else) sum the same
+    elements in the same order as the tool's reference, also where the
+    iterations end inside a load and past a wrap; indices below 0 and past
+    the width take the divisor's sign."""
+    tab_row, tab, idx = tlg.inputs(th, tw)
+    idx[0, :4] = [-1, -tw - 3, 2 * tw + 1, tw - 1]
+    got = _staged_gather(tab, idx, iters)
+    want = tlg.lane_gather(torch.from_numpy(tab), torch.from_numpy(idx),
+                           iters).numpy()
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+def test_lane_gather_bound_parts_count_bank_conflicts():
+    """The wavefronts of ``bound_parts`` are, for each warp of 32 columns
+    and each i, the most lanes on one bank: here lanes 0-3 of the first of
+    four warps start 32 apart (four on one bank at every i), every other
+    lane on a bank of its own; the chain is iters links."""
+    idx = np.tile(np.arange(32, dtype=np.int32), 4)[None, :]
+    idx[0, 0:4] = [0, 32, 64, 96]
+    parts = tlg.bound_parts(idx, 10, 4.0, 1000.0, 132)
+    assert parts["wavefronts"] == 10 * (4 + 3)
+    assert parts["conflict_free_wavefronts"] == 10 * 4
+    assert parts["sms_in_use"] == 4
+    assert parts["chain_ms"] == pytest.approx(10 * 4.0 / 1e9 * 1e3)
+    assert parts["wavefront_ms"] == pytest.approx(70 / 4 / 1e9 * 1e3)
+    assert parts["bound_by"] == "chain"
+    _, _, idx = tlg.inputs(32, 256)
+    parts = tlg.bound_parts(idx, 512, 4.0, 1980.0, 132)
+    assert 2.0 < parts["wavefronts_per_gather"] < 5.0
+    assert parts["bound_by"] == "wavefronts"
+
+
 # ---------------------------------------------------------------------------
 # P2 A
 # ---------------------------------------------------------------------------
@@ -354,6 +431,110 @@ def test_woop_least_over_chunk_slices_is_the_whole_product_bitwise(n_chunks,
     least = functools.reduce(torch.minimum, parts)
     assert torch.equal(least.view(torch.int32), whole.view(torch.int32))
     assert 0.05 < float((whole != tmx._FLT_MAX).float().mean()) < 0.95
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread: a CPU op past 32768 elements runs on several, and
+    many times slower under the test run's workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _block_slices(kernel, n_chunks):
+    """The slice of each block of a cluster and the pieces it is staged
+    and scanned in, as the launcher plans them at n_chunks."""
+    piece, pieces = tmx.piece_plan(kernel, n_chunks)
+    out = []
+    for first, last in _chunk_slices(n_chunks, tmx.CLUSTER[kernel]):
+        parts = tmx.pieces_of(first, last, piece)
+        assert len(parts) <= pieces
+        out.append(((first, last), parts))
+    return piece, pieces, out
+
+
+def test_piece_plan_is_one_piece_where_a_slice_fits():
+    """A block's slice stays one piece up to 300 chunks (A: 1536 bytes a
+    chunk beside 2048 static, clusters of 2) and 584 (B: 3168 beside 256,
+    clusters of 8) in an H100 block's 232448 bytes; past that it comes in
+    pieces as even as they come, each under the limit."""
+    for kernel, most in (("mt_scan", 300), ("woop_mma", 584)):
+        for n in (1, 7, 64, most):
+            assert tmx.piece_plan(kernel, n)[1] == 1, (kernel, n)
+        for n in (most + 1, 600, 4 * most + 3):
+            piece, pieces = tmx.piece_plan(kernel, n)
+            assert pieces > 1
+            assert piece * tmx.CHUNK_BYTES[kernel] \
+                + tmx.STATIC_BYTES[kernel] <= tmx.SMEM_OPTIN
+            for (first, last), parts in _block_slices(kernel, n)[2]:
+                assert parts[0][0] == first and parts[-1][1] == last
+                assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+                assert max(b - a for a, b in parts) <= piece
+
+
+def test_mt_scan_least_over_pieces_is_the_whole_slice_bitwise(one_thread):
+    """F2, A at 301 chunks: the second block's slice (151 chunks) in the
+    two pieces the launcher plans; ray 0 aimed at a row of the first piece
+    with that row copied into the second.  torch.minimum over the pieces'
+    plain scans equals the plain scan of the whole slice bit for bit (256
+    rays)."""
+    piece, pieces, slices = _block_slices("mt_scan", 301)
+    assert (piece, pieces) == (76, 2)
+    (first, last), parts = slices[1]
+    a = tmx.inputs(1)
+    rng = np.random.default_rng(1)
+    tri = rng.normal(size=((last - first) * tmx.CHUNK, tmx.TRI_COLS)) \
+        .astype(np.float32)
+    tri[5, 3:6] = 0.0
+    v0, e1, e2 = tri[10, 0:3], tri[10, 3:6], tri[10, 6:9]
+    d0 = np.cross(e1, e2).astype(np.float32)
+    o = a["o"].reshape(3, -1)[:, :256].copy()
+    d = a["d"].reshape(3, -1)[:, :256].copy()
+    o[:, 0] = v0 + np.float32(0.3) * e1 + np.float32(0.3) * e2 \
+        - np.float32(1e-3) * d0
+    d[:, 0] = d0
+    tri[(parts[1][0] - first) * tmx.CHUNK + 3] = tri[10]
+    tri, o, d = map(torch.from_numpy, (tri, o, d))
+    whole = tmx.mt_scan_plain(tri, o, d)
+    ts = [tmx.mt_scan_plain(tri[(c0 - first) * tmx.CHUNK:
+                                (c1 - first) * tmx.CHUNK], o, d)
+          for c0, c1 in parts]
+    least = functools.reduce(torch.minimum, ts)
+    assert torch.equal(least.view(torch.int32), whole.view(torch.int32))
+    assert whole[0] < 0.01
+    # some ray takes its least t from each piece
+    assert set(torch.stack(ts).argmin(dim=0).tolist()) == {0, 1}
+
+
+def test_woop_least_over_pieces_is_the_whole_slice_bitwise(one_thread):
+    """F2, B at 600 chunks: a block's slice (75 chunks) in the two pieces
+    the launcher plans, the first hitting ray's winning triangle copied
+    into the other piece.  torch.minimum over the pieces' plain products
+    equals the plain product over the whole slice bit for bit (256
+    rays)."""
+    piece, pieces, slices = _block_slices("woop_mma", 600)
+    assert (piece, pieces) == (38, 2)
+    (first, last), parts = slices[3]
+    a = tmx.inputs(last - first)
+    x = torch.from_numpy(a["x"][:256].copy())
+    w = tmx.as_bf16(a["w"])
+    whole, win = tmx.woop_plain(w, x, winner=True)
+    r = int(torch.nonzero(win >= 0)[0, 0])
+    c, j = divmod(int(win[r]), tmx.CHUNK)
+    other = (parts[1][0] - first) if c < parts[1][0] - first else 0
+    cols = [g * tmx.CHUNK + j for g in range(6)]
+    dup = [g * tmx.CHUNK + (j + 5) % tmx.CHUNK for g in range(6)]
+    w[other][:, dup] = w[c][:, cols].clone()
+    whole = tmx.woop_plain(w, x)
+    least = functools.reduce(torch.minimum, [
+        tmx.woop_plain(w[c0 - first:c1 - first], x) for c0, c1 in parts])
+    assert torch.equal(least.view(torch.int32), whole.view(torch.int32))
+    assert whole[r, 0] < tmx._FLT_MAX
+    _, win = tmx.woop_plain(w, x, winner=True)
+    assert {int(c >= (parts[1][0] - first) * tmx.CHUNK)
+            for c in win[win >= 0].tolist()} == {0, 1}
 
 
 _SASS = """

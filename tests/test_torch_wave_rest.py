@@ -83,6 +83,52 @@ def test_wave_raygen_rows_and_frames():
     assert not torch.equal(full[2][:n], full[2][n:])
 
 
+@pytest.mark.parametrize("n_frames,hp,wp", [
+    (1, 32, 128), (1, 8, 512), (3, 16, 70), (2, 48, 200), (3, 64, 69),
+    (1, 1, 4)])
+def test_raygen_grid_takes_every_pixel_once(n_frames, hp, wp):
+    """K4's map from threads to pixels (``raygen_pixels``: a block a strip
+    of RAYGEN_THREADS columns of one row of one frame) takes every pixel of
+    (F, Hp, Wp) once, each with the (frame, row, column) of its flat
+    index, also where the width is not a multiple of the strip (70, 200,
+    69: the last strip's threads past Wp take none)."""
+    visits = ttk.raygen_pixels(n_frames, hp, wp)
+    n = n_frames * hp * wp
+    assert torch.equal(visits[:, 0].sort().values, torch.arange(n))
+    f, row, col = visits[:, 1], visits[:, 2], visits[:, 3]
+    assert torch.equal((f * hp + row) * wp + col, visits[:, 0])
+    assert bool(((col < wp) & (row < hp) & (f < n_frames)).all())
+    gx, gy, gz = ttk.raygen_grid(n_frames, hp, wp)
+    assert (gy, gz) == (hp, n_frames)
+    assert (gx - 1) * ttk.RAYGEN_THREADS < wp <= gx * ttk.RAYGEN_THREADS
+
+
+def test_raygen_pixel_map_gives_the_plain_rays_bitwise():
+    """Rays generated at the (frame, row + row0, column) K4's map gives
+    each visit, stored at its flat index, are ``wave_raygen_plain``'s bit
+    for bit: three frames of 48 x 69 padded pixels of a 69 x 33 image."""
+    sd = tscenes.scene_suzanne(69, 33, device="cpu")
+    cam_row = tdispatch.pack_camera(sd.camera)
+    times = torch.tensor([TIME, TIME + 10, TIME + 20], dtype=torch.int32)
+    kw = dict(height=33, width=69, height_pad=48, width_pad=69,
+              normalize_defocus_dir=False)
+    want = ttk.wave_raygen_plain(cam_row, times, 5, **kw)
+    visits = ttk.raygen_pixels(3, 48, 69)
+    cam = [float(v) for v in cam_row.reshape(-1)]
+    t = times.to(torch.int64)[visits[:, 1]] & 0xFFFFFFFF
+    state, o, d = ttk.tc.generate_rays(
+        cam, visits[:, 3], visits[:, 2] + 5, height=33, width=69, time=t,
+        normalize_defocus_dir=False)
+    n = 3 * 48 * 69
+    got = torch.empty((8, n), dtype=torch.float32)
+    got[:, visits[:, 0]] = torch.stack(
+        [*o, *d[0:3], d[1], ttk.rng.to_i32(state).view(torch.float32)])
+    assert torch.equal(got[0:6].view(torch.int32),
+                       want[0].view(torch.int32))
+    assert torch.equal(got[6].view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(got[7].view(torch.int32), want[2])
+
+
 # ---- the morton key --------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
