@@ -318,13 +318,10 @@ def compare_raygen(size: int, reps: int):
     n = size * size
     rec = _wave_record("wave_raygen", 637, args.sd.name, size, th, tw,
                        k_out, p_out, plain_ms)
-    *grid, threads = tris_kernel.raygen_launch(1, size, size)
-    if (tuple(grid), threads) != (tris_kernel.raygen_grid(1, size, size),
-                                  tris_kernel.RAYGEN_THREADS):
-        raise SystemExit(f"wave_raygen: launch {grid} x {threads} is not "
-                         "the one tris_kernel.raygen_pixels models")
+    grid = tris_kernel.raygen_grid(1, size, size)
+    threads = tris_kernel.RAYGEN_THREADS
     blocks = grid[0] * grid[1] * grid[2]
-    rec["grid"] = grid + [threads]
+    rec["grid"] = [*grid, threads]
     # the kernel runs for a few microseconds: read it from a graph replay,
     # and the wrapper's cost on the host beside it
     rec["ms"] = _timed_graph(run, reps)
@@ -754,14 +751,13 @@ def max_sm_clock_mhz() -> float:
 
 
 def _p2_shape(name, kernel, pairs, n_chunks=64):
-    """A P2 kernel's launch (``r5_mxu.launch_shape``) at ``n_chunks``,
-    registers (``-Xptxas -v``) of the instance that launch runs (a slice
-    in one piece or in several), the SASS instructions of its innermost
-    loop, those a pair runs (the loop's less the slow path that a branch
-    skips, the IEEE division's for x of an extreme exponent: these inputs
-    take none), and the issue floor they give: a pair's instructions for
-    every 32 pairs (a warp instruction), four a cycle on each SM at the
-    card's top clock."""
+    """A P2 kernel's launch (``r5_mxu.launch_shape``) at ``n_chunks`` (its
+    slice in one piece or in several: ``r5_mxu.piece_plan``), registers
+    (``-Xptxas -v``), the SASS instructions of its innermost loop, those a
+    pair runs (the loop's less the slow path that a branch skips, the IEEE
+    division's for x of an extreme exponent: these inputs take none), and
+    the issue floor they give: a pair's instructions for every 32 pairs (a
+    warp instruction), four a cycle on each SM at the card's top clock."""
     from rt_torch.probes import r5_mxu
 
     lib = _build.load()
@@ -771,23 +767,20 @@ def _p2_shape(name, kernel, pairs, n_chunks=64):
         raise SystemExit(f"probes: {name} at {n_chunks} chunks stages "
                          f"{shape['piece']} chunks in {shape['pieces']} "
                          f"turns, r5_mxu.piece_plan says {want}")
-    # the instance with the piece loop where the slice is in pieces
-    tail = ", true>" if shape["pieces"] > 1 else ", false>"
     ptxas = [u for u in _build.ptxas_usage(lib.build_log)
-             if u["kernel"].startswith(kernel + "<")
-             and u["kernel"].endswith(tail)]
-    instance = ptxas[0]["kernel"] if len(ptxas) == 1 else None
-    loops = _build.sass_loops(lib.paths["probes"]).get(instance)
-    if not loops:
-        raise SystemExit(f"probes: no one {kernel}<..{tail} in the build")
-    body = loops[0]
+             if u["kernel"].startswith(kernel + "<")]
+    loops = [v for k, v in _build.sass_loops(lib.paths["probes"]).items()
+             if k.startswith(kernel + "<")]
+    if len(ptxas) != 1 or not loops or not loops[0]:
+        raise SystemExit(f"probes: no one {kernel} with a loop in the "
+                         "build")
+    body = loops[0][0]
     per_pair = (body["instructions"] - body["slow_path"]) \
         / shape["pairs_per_turn"]
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     clock = max_sm_clock_mhz() * 1e6
     floor_ms = pairs / 32 * per_pair / (sms * 4 * clock) * 1e3
-    return dict(launch=shape, instance=instance, sms=sms,
-                max_sm_clock_mhz=clock / 1e6,
+    return dict(launch=shape, sms=sms, max_sm_clock_mhz=clock / 1e6,
                 registers=ptxas[0]["registers"],
                 static_smem_bytes=ptxas[0]["smem_bytes"],
                 spill_bytes=(ptxas[0].get("spill_store_bytes", 0)

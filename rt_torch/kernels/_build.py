@@ -43,7 +43,6 @@ _SIGNATURES = {
                            + [_PTR]),
         "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 6
                            + [_PTR]),
-        "rt_wave_raygen_grid": [_INT] * 3 + [_PTR],
         "rt_empty": [_INT, _INT, _PTR],
     },
     "spheres": {

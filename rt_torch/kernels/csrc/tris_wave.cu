@@ -130,9 +130,11 @@ wave_first_kernel(
 // one frame, grid (ceil(Wp / RAYGEN_THREADS), Hp, F).  The frame and the row
 // come from the block's index, so no thread divides and the frame's time is
 // read first, and a warp's store is a whole 128-byte line of a plane.  The
-// render tile plays no part: no ray reads another's.  (Two or four pixels a
-// thread with 64- or 128-bit stores, and a flat grid that divides each
-// thread's index, ran slower at 512x512 on an H100: PERF.md.)
+// render tile plays no part: no ray reads another's.  On an H100 two
+// pixels a thread with 64-bit stores ran 4-6 % slower at 512x512 (one
+// wave: each thread's two rays in turn) and 5 % faster at 1024x1024; four
+// pixels 33-35 % slower at 512x512, a flat grid that divides each
+// thread's index 6-7 % slower (python -m rt_torch.variants raygen).
 constexpr int RAYGEN_THREADS = 128;
 
 // od holds 6 planes of n = F*Hp*Wp: o(3) d(3); pdy_out and state_out one
@@ -162,11 +164,6 @@ wave_raygen_kernel(CameraRow cam, const uint32_t* __restrict__ times,
     od[5 * n + i] = d.z;
     pdy_out[i] = d.y;
     state_out[i] = state;
-}
-
-inline dim3 raygen_grid(int n_frames, int height_pad, int width_pad) {
-    return dim3((width_pad + RAYGEN_THREADS - 1) / RAYGEN_THREADS,
-                height_pad, n_frames);
 }
 
 // Nothing: the fixed cost of a launch of a given grid (chip_smoke.py reads
@@ -394,23 +391,13 @@ extern "C" int rt_wave_raygen(
         return (int)cudaErrorInvalidValue;
     rt::CameraRow row;
     for (int c = 0; c < 20; ++c) row.v[c] = cam[c];
-    rt::wave_raygen_kernel<<<rt::raygen_grid(n_frames, height_pad,
-                                             width_pad),
-                             rt::RAYGEN_THREADS, 0, (cudaStream_t)stream>>>(
+    const dim3 grid((width_pad + rt::RAYGEN_THREADS - 1)
+                        / rt::RAYGEN_THREADS, height_pad, n_frames);
+    rt::wave_raygen_kernel<<<grid, rt::RAYGEN_THREADS, 0,
+                             (cudaStream_t)stream>>>(
         row, times, row0, height, width, height_pad, width_pad,
         normalize_defocus_dir, od, pdy, state);
     return (int)cudaGetLastError();
-}
-
-// K4's launch for F frames of Hp x Wp: out = grid x, y, z, threads a block
-extern "C" int rt_wave_raygen_grid(int n_frames, int height_pad,
-                                   int width_pad, int* out) {
-    const dim3 g = rt::raygen_grid(n_frames, height_pad, width_pad);
-    out[0] = (int)g.x;
-    out[1] = (int)g.y;
-    out[2] = (int)g.z;
-    out[3] = rt::RAYGEN_THREADS;
-    return 0;
 }
 
 extern "C" int rt_empty(int blocks, int threads, void* stream) {

@@ -681,10 +681,10 @@ def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
 
     cam_row: (1, 20) f32 on the host.  times: (F,) int32 u32 bit patterns.
     Returns (od (6, n) f32: o, d; primary dy (n,) f32; post-raygen RNG
-    state (n,) int32), n = F*Hp*Wp in image order: three views of one
-    (8, n) allocation.  (th, tw) must tile the padded frame, as for the
-    other wave kernels, but the kernel ignores it: no ray reads another's,
-    and it launches on its own grid of row strips (``raygen_grid``).
+    state (n,) int32), n = F*Hp*Wp in image order.  (th, tw) must tile the
+    padded frame, as for the other wave kernels, but the kernel ignores it:
+    no ray reads another's, and it launches on its own grid of row strips
+    (``raygen_grid``).
     """
     if times.device.type == "cpu":
         return wave_raygen_plain(
@@ -699,21 +699,20 @@ def wave_raygen(cam_row, times, row0: int, *, height: int, width: int,
     n_frames = times.shape[0]
     n = n_frames * height_pad * width_pad
     dev = times.device
-    # one allocation, and the stream's handle without a Stream object:
-    # the wrapper's host time is several times the kernel's (PERF.md)
-    planes = torch.empty((8, n), dtype=torch.float32, device=dev)
-    base = planes.data_ptr()
+    od = torch.empty((6, n), dtype=torch.float32, device=dev)
+    pdy = torch.empty((n,), dtype=torch.float32, device=dev)
+    state = torch.empty((n,), dtype=torch.int32, device=dev)
     cam = _cam_array(cam_row)
 
     lib = _build.load()
     code = lib.rt_wave_raygen(
-        cam.ctypes.data, times.data_ptr(), row0, base, base + 6 * 4 * n,
-        base + 7 * 4 * n, height, width, height_pad, width_pad, n_frames,
-        int(normalize_defocus_dir),
-        torch._C._cuda_getCurrentRawStream(dev.index))
+        cam.ctypes.data, times.data_ptr(), row0, od.data_ptr(),
+        pdy.data_ptr(), state.data_ptr(), height, width, height_pad,
+        width_pad, n_frames, int(normalize_defocus_dir),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "wave_raygen")
     LAUNCHES["wave_raygen"] += 1
-    return planes[0:6], planes[6], planes[7].view(torch.int32)
+    return od, pdy, state
 
 
 # K4's launch (csrc/tris_wave.cu): a block is RAYGEN_THREADS consecutive
@@ -724,21 +723,6 @@ RAYGEN_THREADS = 128
 def raygen_grid(n_frames: int, height_pad: int, width_pad: int) -> tuple:
     """K4's grid for F frames of Hp x Wp pixels: (x, y, z) blocks."""
     return -(-width_pad // RAYGEN_THREADS), height_pad, n_frames
-
-
-def raygen_launch(n_frames: int, height_pad: int, width_pad: int) -> tuple:
-    """K4's launch on the card, as its launcher computes it: (grid x, y,
-    z, threads a block)."""
-    import ctypes
-
-    from rt_torch.kernels import _build
-
-    lib = _build.load()
-    vals = (ctypes.c_int * 4)()
-    _build.check(lib, lib.rt_wave_raygen_grid(n_frames, height_pad,
-                                              width_pad, vals),
-                 "raygen_launch")
-    return tuple(vals)
 
 
 def raygen_pixels(n_frames: int, height_pad: int,

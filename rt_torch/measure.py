@@ -826,13 +826,10 @@ def raygen_bound(n: int):
     return bound([], 20 * 4 + 4 + 8 * n * 4, extra_flops=n * FLOPS_PER_RAYGEN)
 
 
-def empty_ms(blocks: int, threads: int, reps: int = 50) -> float | None:
+def empty_ms(blocks: int, threads: int, reps: int = 50) -> float:
     """Device ms of an empty kernel on a grid of ``blocks`` x ``threads``
-    from a CUDA graph (``_graph_ms``): the fixed cost of such a launch.
-    None where the build has no empty kernel (an older tree's)."""
+    from a CUDA graph (``_graph_ms``): the fixed cost of such a launch."""
     lib = _build.load()
-    if not hasattr(lib, "rt_empty"):
-        return None
 
     def launch():
         _build.check(lib, lib.rt_empty(
@@ -869,10 +866,8 @@ def raygen(size: str = "512", reps: int = 50):
     th, tw = kw["th"], kw["tw"]
     run = lambda: tris_kernel.wave_raygen(cam_row, times, 0, **kw)
     lib = _build.load()
-    grid = None
-    if hasattr(lib, "rt_wave_raygen_grid"):
-        *xyz, threads = tris_kernel.raygen_launch(1, int(size), int(size))
-        grid = [xyz[0] * xyz[1] * xyz[2], threads]
+    gx, gy, gz = tris_kernel.raygen_grid(1, int(size), int(size))
+    grid = [gx * gy * gz, tris_kernel.RAYGEN_THREADS]
     dst = torch.empty(8 * n, dtype=torch.float32, device=dev)
     src = torch.zeros_like(dst)
     ms = {}
@@ -884,9 +879,8 @@ def raygen(size: str = "512", reps: int = 50):
             ms.setdefault(name, []).append(_graph_ms(fn, reps))
         ms.setdefault("empty_tile_grid", []).append(
             empty_ms(n // (th * tw), th * tw, reps))
-        if grid:
-            ms.setdefault("empty_k4_grid", []).append(
-                empty_ms(grid[0], grid[1], reps))
+        ms.setdefault("empty_k4_grid", []).append(
+            empty_ms(grid[0], grid[1], reps))
     bound_ms, bound_by, flops = raygen_bound(n)
     # the wrapper and its parts
     cam = tris_kernel._cam_array(cam_row)
@@ -894,9 +888,7 @@ def raygen(size: str = "512", reps: int = 50):
     planes = torch.empty((8, n), dtype=torch.float32, device=dev)
     ptrs = (planes.data_ptr(), planes[6].data_ptr(), planes[7].data_ptr())
     geom = (kw["height"], kw["width"], kw["height_pad"], kw["width_pad"], 1)
-    # this tree's C entry, or an older one that also took the tile
-    tile = (th, tw) if len(lib.rt_wave_raygen.argtypes) == 15 else ()
-    launch_args = (cam.ctypes.data, times.data_ptr(), 0, *ptrs, *geom, *tile,
+    launch_args = (cam.ctypes.data, times.data_ptr(), 0, *ptrs, *geom,
                    int(kw["normalize_defocus_dir"]), stream)
     host = {
         "wrapper": _host_us(run),
@@ -914,8 +906,6 @@ def raygen(size: str = "512", reps: int = 50):
                                        planes[7].data_ptr())),
         "stream": _host_us(
             lambda: torch.cuda.current_stream(dev).cuda_stream),
-        "stream_raw": _host_us(
-            lambda: torch._C._cuda_getCurrentRawStream(0)),
         "load": _host_us(_build.load),
         "launch": _host_us(lambda: lib.rt_wave_raygen(*launch_args)),
         "check": _host_us(lambda: _build.check(lib, 0, "wave_raygen")),
