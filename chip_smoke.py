@@ -11,7 +11,21 @@ woop_mma) against its plain PyTorch version on the card at the shapes and in
 the stream states each path gives it, drives the probes (``python -m
 rt_torch.probes lane_gather`` and ``r5_mxu`` at the tools' sizes) and the
 port's render paths (``rt_torch.measure.PATHS``) through ``build_scene ->
-ProgressiveRenderer -> draw_frames``:
+ProgressiveRenderer -> draw_frames``, after three phases of the soft pose
+slice:
+
+- ``config5``: the JAX package's BASELINE config 5 end to end at
+  1920x1080 (``rt_torch.config5``: the 4-spp target through wave_raygen
+  and wave_bounce, the 1-spp observation through wave_first and
+  wave_bounce, three soft pose stages, the replay polish through
+  tris_record), its launches counted, the JAX recipe's recovery guards;
+- ``soft_devices``: the soft surrogate's image and gradients on the card
+  against the CPU on the same inputs;
+- ``app``: the CLI's checkpoint/resume byte-equal to an uninterrupted
+  render at 512x512, its ``--stats`` lines, a ``profile_trace`` Chrome
+  trace;
+
+then:
 
 - Suzanne 512x512, 8 bounces, 1 sample per pixel (wave_first, wave_bounce);
 - scene 1 (sphere_simple) 512x512, 10 bounces (spheres);
@@ -1148,6 +1162,161 @@ def phase_train():
     return launches
 
 
+# config 5's step counts in the smoke run (rt_torch.config5's defaults are
+# the JAX tool's: soft 240, fine 150, ultra 80, polish 24)
+CONFIG5_STEPS = ["--soft-steps", "160", "--fine-steps", "90",
+                 "--ultra-steps", "40", "--polish-steps", "32"]
+
+
+def phase_config5():
+    """BASELINE config 5 end to end at 1920x1080 (``rt_torch.config5``):
+    the 4-spp target (K4, then K3 from bounce 0) and the 1-sample
+    observation (K2, then K3), the three soft pose stages (no kernel), and
+    the replay polish (K9 once a record).  The launch counts are set to 0
+    just before and read just after; the JAX package's own guards of the
+    recipe hold: theta and phi errors down at least 10x, fov 2x, the
+    albedo error 5x, every loss finite."""
+    from rt_torch import config5
+
+    args = config5.parse_args(CONFIG5_STEPS)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = config5.run(args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in dispatch.launch_counts().items() if v}
+    want = r["expected_launches"]
+    red = r["reduction"]
+    guards = dict(theta_10x=red["theta_deg"] >= 10,
+                  phi_10x=red["phi_deg"] >= 10, fov_2x=red["fov_rad"] >= 2,
+                  albedo_5x=r["albedo_reduction"] >= 5,
+                  losses_finite=r["losses_finite"],
+                  launches=launches == {k: v for k, v in want.items() if v})
+    ok = all(guards.values())
+    say(phase="config5", ok=ok, guards=guards, launches=launches,
+        phase_seconds=dt, **r)
+    if not ok:
+        raise SystemExit(f"config5: a guard failed: {guards}; launches "
+                         f"{launches}, expected {want}")
+
+
+def phase_soft_devices():
+    """The soft surrogate on the card against the same inputs on the CPU
+    (Suzanne 240x135, chunk 32, tau 0.008, the config-5 loss against a
+    seeded random target): the forward within 1e-6 absolute, the camera
+    and albedo gradients of the image-gradient loss within 1e-4 of each
+    leaf's largest entry (the CPU tests' limits against the JAX
+    package)."""
+    from rt_torch.config5 import LOOK_TARGET
+    from rt_torch.grad.params import look_at
+    from rt_torch.grad.soft_tris import (OrbitParams, make_soft_tris_loss,
+                                         soft_render_tris)
+
+    t0 = time.perf_counter()
+    w, h = 240, 135
+    target = np.random.RandomState(5).uniform(
+        0.0, 1.0, (h, w, 3)).astype(np.float32)
+    # the camera parameters are made once, on the CPU: the card's sinf and
+    # cosf would otherwise give another pose to the last bit
+    cam = scenes.scene_suzanne(8, 8, device="cpu").camera
+    op = OrbitParams.from_eye(np.asarray(cam.eye[:3]), LOOK_TARGET,
+                              float(cam.fov) + 0.02, device="cpu")
+    op = op._replace(theta=op.theta + 0.03)
+    cp0 = op.to_camera_params(LOOK_TARGET, float(cam.focal_length), 0.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sd = scenes.scene_suzanne(w, h, device=dev)
+        cp = type(cp0)(*(v.to(dev) for v in cp0))
+        with torch.no_grad():
+            img = soft_render_tris(sd.scene, look_at(cp), sd.config,
+                                   tau=0.008, chunk=32)
+        loss = make_soft_tris_loss(sd.scene, sd.config, target, tau=0.008,
+                                   chunk=32, loss_mode="grad", grad_pool=2)
+        leaves = [v.detach().clone().requires_grad_() for v in cp]
+        albedo = sd.scene.mat_albedo.detach().clone().requires_grad_()
+        value = loss(type(cp)(*leaves), albedo)
+        # focal_blur takes no part (the surrogate has no defocus)
+        grads = torch.autograd.grad(value, leaves + [albedo],
+                                    allow_unused=True)
+        out[dev] = (img.cpu(), float(value.detach()),
+                    [torch.zeros_like(x).cpu() if g is None else g.cpu()
+                     for g, x in zip(grads, leaves + [albedo])])
+    (img_c, loss_c, g_c), (img_p, loss_p, g_p) = out["cuda"], out["cpu"]
+    names = list(cp._fields) + ["mat_albedo"]
+    grad_rel = {n: float((a - b).abs().max() / max(float(b.abs().max()),
+                                                   1e-30))
+                for n, a, b in zip(names, g_c, g_p)}
+    forward = float((img_c - img_p).abs().max())
+    loss_rel = abs(loss_c - loss_p) / loss_p
+    live = {n: float(b.abs().max()) > 1e-6 for n, b in zip(names, g_p)}
+    # a leaf whose gradient is below 1e-6 must be as small on the card
+    ok = (forward <= 1e-6 and loss_rel <= 1e-4
+          and all(grad_rel[n] <= 1e-4 if live[n]
+                  else float(a.abs().max()) <= 2e-6
+                  for n, a in zip(names, g_c))
+          and live["eye"] and live["fov"] and live["mat_albedo"])
+    say(phase="soft_devices", ok=ok, size=[w, h], forward_max_abs=forward,
+        loss_rel=loss_rel, grad_rel_of_leaf_max=grad_rel, live=live,
+        limits=dict(forward=1e-6, loss=1e-4, grad=1e-4),
+        seconds=time.perf_counter() - t0)
+    if not ok:
+        raise SystemExit("soft_devices: the card and the CPU disagree past "
+                         "the CPU tests' limits")
+
+
+def phase_app():
+    """The app shell on the card: ``rt_torch.cli`` renders Suzanne at
+    512x512 through the kernels, 2 frames with ``--batch 2 --checkpoint``,
+    then ``--resume`` to 4; its PPM must be byte-equal to an uninterrupted
+    4-frame render (drawn under ``profile_trace``, whose Chrome trace must
+    hold kernel events), and ``--stats`` prints a line a batch."""
+    import contextlib
+    import io
+
+    from rt_torch.utils import profile_trace
+
+    t0 = time.perf_counter()
+    dispatch.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        ck, a, b = (os.path.join(d, n) for n in ("ck.npz", "a.ppm", "b.ppm"))
+        common = ["--scene", "5", "--size", "512x512", "--batch", "2",
+                  "--stats"]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rcs = [cli.main(common + ["--frames", "2", "--checkpoint", ck,
+                                      "-o", a]),
+                   cli.main(common + ["--frames", "4", "--checkpoint", ck,
+                                      "--resume", "-o", a])]
+            with profile_trace(os.path.join(d, "trace")):
+                rcs.append(cli.main(common + ["--frames", "4", "-o", b]))
+        with open(a, "rb") as f, open(b, "rb") as g:
+            equal = f.read() == g.read()
+        with open(os.path.join(d, "trace", "trace.json")) as f:
+            trace = f.read()
+    log = err.getvalue()
+    stats_lines = sum(1 for line in log.splitlines()
+                      if line.strip().startswith("frame "))
+    launches = {k: v for k, v in dispatch.launch_counts().items() if v}
+    # a CUDA kernel event in the Chrome trace (torch.profiler has missed
+    # single launches, so no one kernel's name is required)
+    kernels_traced = '"cat": "kernel"' in trace
+    names_traced = [k for k in ("wave_first_kernel", "wave_bounce_kernel")
+                    if k in trace]
+    ok = (rcs == [0, 0, 0] and equal and stats_lines == 4
+          and "resumed at frame 2" in log and kernels_traced
+          and launches == {"wave_first": 8, "wave_bounce": 16})
+    say(phase="app", ok=ok, rcs=rcs, resumed_equals_uninterrupted=equal,
+        stats_lines=stats_lines, kernel_events_in_trace=kernels_traced,
+        kernel_names_in_trace=names_traced,
+        launches=launches, seconds=time.perf_counter() - t0)
+    if not ok:
+        raise SystemExit("app: a CLI run failed, the resumed PPM differs "
+                         "from the uninterrupted one, a --stats line is "
+                         "missing, the trace lacks the kernels, or the "
+                         f"launches are not 8 K2 and 16 K3 ({launches})")
+
+
 def phase_golden():
     """tests/golden_tris (the JAX oracle's images): 128x128, 8 frames from
     time 1000 (lucy, dragon: 96x96, 2 frames) under the 0.05 % bound (0.6 %
@@ -1178,6 +1347,9 @@ def main():
     say(phase="device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda)
     phase_build()
+    phase_config5()
+    phase_soft_devices()
+    phase_app()
     probe_records, probe_launches = phase_probes()
     phase_kernels(scenes.scene_suzanne, 128, (2, 1))
     launches = phase_render()

@@ -5,7 +5,8 @@ Usage:
                            --size WxH -o out.ppm
                            [--spp S] [--bounces B] [--seed N] [--device cpu]
                            [--mono] [--oracle] [--time-step MS]
-                           [--start-time T]
+                           [--start-time T] [--batch N] [--stats]
+                           [--checkpoint PATH] [--resume]
 
 Renders a scene (1 sphere_simple, 2 sphere_globe, 3 quad, 4 cube, 5 suzanne,
 6 lucy, 7 dragon, 8 sphere_cover; another id gives scene 1) progressively
@@ -18,19 +19,28 @@ compiled at first use.  ``--device cpu`` runs their plain PyTorch versions
 (slow; meant for small sizes).  ``--oracle`` renders through the oracle
 backend instead of the kernels: plain tensor code, every sphere or the BVH
 walk per bounce, on the same device.
+
+Frames are drawn in batches of ``--batch`` (one ``draw_frames`` call each);
+``--stats`` prints a throughput line a batch, and ``--checkpoint PATH``
+saves the render state after every batch.  ``--resume`` continues from that
+file where it exists: the resumed render is bit for bit the uninterrupted
+one.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import random
 import sys
 import time as time_mod
 
+from rt_torch.render.checkpoint import load_render_state, save_render_state
 from rt_torch.render.ppm import write_ppm
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes
+from rt_torch.utils import RenderStats, device_sync
 
 
 def parse_args(argv=None):
@@ -67,6 +77,14 @@ def parse_args(argv=None):
                         "code, no kernel) instead of the kernels")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the randomised globe scene (scene 2)")
+    p.add_argument("--batch", type=int, default=25,
+                   help="frames a draw_frames call")
+    p.add_argument("--stats", action="store_true",
+                   help="print throughput stats a frame batch")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file, saved after every batch")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint where it exists")
     return p.parse_args(argv)
 
 
@@ -120,14 +138,29 @@ def main(argv=None) -> int:
           file=sys.stderr)
     r = ProgressiveRenderer(sd, device=args.device)
     r.set_time(args.start_time)
-    t0 = time_mod.perf_counter()
-    r.draw_frames(args.frames, args.time_step)
-    image = r.image                       # device -> host: waits for the card
-    dt = time_mod.perf_counter() - t0
-    write_ppm(args.output, image)
-    segs = w * h * sd.config.bounces * spp * args.frames
-    print(f"wrote {args.output} ({args.frames / dt:.2f} frames/s, "
-          f"{segs / dt:.3e} ray segments/s, first call included)",
+    done = 0
+    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+        r.state, t = load_render_state(args.checkpoint, device=args.device)
+        r.set_time(t)
+        done = r.frame_count
+        print(f"resumed at frame {done} (time {t})", file=sys.stderr)
+
+    stats = RenderStats(width=w, height=h, bounces=sd.config.bounces,
+                        samples_per_frame=spp)
+    while done < args.frames:
+        n = min(args.batch, args.frames - done)
+        t0 = time_mod.perf_counter()
+        r.draw_frames(n, args.time_step)
+        device_sync(r.state.image)
+        stats.update(n, time_mod.perf_counter() - t0)
+        done += n
+        if args.checkpoint:
+            save_render_state(args.checkpoint, r.state, r.time)
+        if args.stats:
+            print(f"  frame {done}/{args.frames}: {stats.summary()}",
+                  file=sys.stderr)
+    write_ppm(args.output, r.image)
+    print(f"wrote {args.output} ({stats.summary()}, first call included)",
           file=sys.stderr)
     return 0
 

@@ -84,3 +84,7 @@ class RenderConfig:
         kw.setdefault("normalize_defocus_dir", True)
         kw.setdefault("normalize_reflect_in", False)
         return RenderConfig(width=width, height=height, **kw)
+
+    @property
+    def aspect_ratio(self) -> float:
+        return self.width / self.height

@@ -50,7 +50,7 @@ from rt_torch.render import oracle
 
 
 def record_hits(scene, camera, config: RenderConfig, time, device="cuda",
-                tris_backend: str = "auto"):
+                tris_backend: str = "auto", packed=None):
     """(color (H, W, 3), hits (bounces, H, W) int32 scene-order primitive
     ids, -1 on a miss) from the recording kernels on a card, their plain
     versions on the CPU.
@@ -60,6 +60,11 @@ def record_hits(scene, camera, config: RenderConfig, time, device="cuda",
     lucy- and dragon-sized meshes recordable) or ``"auto"`` (wave above the
     8192 triangles at which the render dispatch changes branch, mono up to
     them).
+
+    packed: for a triangle scene, its tables from ``pack_tri_table``
+    (without ``split_big``) with ``mats`` current; a fit that changes only
+    materials packs once and swaps ``mats`` (``fit_replay``).  None packs
+    the scene here.
     """
     geo = dispatch.frame_geometry(config)
     common = dict(bounces=config.bounces,
@@ -83,9 +88,10 @@ def record_hits(scene, camera, config: RenderConfig, time, device="cuda",
             raise ValueError(f"tris_backend {tris_backend!r}: auto, mono "
                              "or wave")
         dispatch.check_device(scene.a, device)
-        with torch.no_grad():
-            # both recorders pack as the JAX package's do: no split_big
-            packed = tris_kernel.pack_tri_table(scene)
+        if packed is None:
+            with torch.no_grad():
+                # both recorders pack as the JAX package's do: no split_big
+                packed = tris_kernel.pack_tri_table(scene)
         record = (tris_kernel.render_color_tris_wave_record
                   if tris_backend == "wave"
                   else tris_kernel.render_color_tris_record)

@@ -23,6 +23,7 @@ from rt_torch.grad.params import (SphereParams, TriangleParams, apply_params,
 from rt_torch.grad.replay import (_gather_tri_rows, _tris_replay_tables,
                                   record_hits, record_hits_oracle,
                                   replay_color)
+from rt_torch.kernels.tris_kernel import material_table, pack_tri_table
 
 
 def _tri_scene_params(base_scene, scene_fields) -> TriangleParams:
@@ -145,7 +146,9 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
     recording kernels on a card, their plain versions on the CPU; the
     sorted-stream recorder above 8192 triangles) or ``"oracle"``
     (``record_hits_oracle``: plain tensor code, the BVH walk for a mesh).
-    Neither is ever swapped for the other.  Inner loop:
+    Neither is ever swapped for the other.  The recorder's tables are
+    packed once a fit (the materials' table swapped in at each record)
+    unless the vertices are parameters.  Inner loop:
     ``rerecord_every`` Adam steps on the frozen-path replay objective; the
     losses stay on the device until the block ends, so the host reads back
     once per block.  Returns (params dict, losses list).
@@ -200,16 +203,25 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
 
     pre_tab = (_tris_replay_tables(base_scene)[0]
                if is_tris and frozen_geometry else None)
+    # the recorder's tables: packed once a fit while the geometry is fixed;
+    # each record then swaps in the current material table
+    packed = None
+    if is_tris and recorder == "kernels" and not (
+            isinstance(sp, TriangleParams) and sp.has_vertices):
+        with torch.no_grad():
+            packed = pack_tri_table(base_scene)
 
     losses = []
     done = 0
     while done < steps:
         k = min(rerecord_every, steps - done)
         with torch.no_grad():
+            scene = _apply_scene(base_scene, params)
+            kw = ({} if packed is None else
+                  dict(packed=packed._replace(mats=material_table(scene))))
             _, hits = record(
-                _apply_scene(base_scene, params),
-                camera_from_params(params.get("camera"), base_camera),
-                config, time, device=device)
+                scene, camera_from_params(params.get("camera"), base_camera),
+                config, time, device=device, **kw)
             pre_rows = (None if pre_tab is None
                         else _gather_tri_rows(pre_tab, hits))
         block = []

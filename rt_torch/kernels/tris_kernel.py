@@ -171,9 +171,7 @@ def pack_tri_table(scene, chunk: int = CHUNK,
     mid = torch.clamp(scene.mat_id, 0, scene.mat_albedo.shape[0] - 1)[order]
     tab = torch.cat([a, b - a, c - a, scene.normal[order].to(torch.float32),
                      mid.to(torch.float32)[:, None]], dim=1)
-    mats = torch.cat([scene.mat_albedo.to(torch.float32),
-                      scene.mat_param.to(torch.float32)[:, None],
-                      scene.mat_kind.to(torch.float32)[:, None]], dim=1)
+    mats = material_table(scene)
 
     m_pad = -(-m // chunk) * chunk
     verts_min = verts_max = torch.stack([a, b, c], dim=1)      # (m, 3, 3)
@@ -190,6 +188,15 @@ def pack_tri_table(scene, chunk: int = CHUNK,
     groups = group_boxes(chunks) if many else None
     return PackedScene(tab.contiguous(), mats.contiguous(),
                        chunks.contiguous(), centroid, order, groups)
+
+
+def material_table(scene) -> torch.Tensor:
+    """(K, 5) f32 ``PackedScene.mats``: albedo rgb, param, kind.  The one
+    part of the tables that a material fit changes."""
+    return torch.cat([scene.mat_albedo.to(torch.float32),
+                      scene.mat_param.to(torch.float32)[:, None],
+                      scene.mat_kind.to(torch.float32)[:, None]],
+                     dim=1).contiguous()
 
 
 def group_boxes(chunks: torch.Tensor, group: int = GROUP) -> torch.Tensor:

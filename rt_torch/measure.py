@@ -14,6 +14,10 @@
                                                   # kernel, a fill and a
                                                   # copy of its bytes; its
                                                   # wrapper's host cost
+    python -m rt_torch.measure pack [SIZE]        # one record that packs
+                                                  # its tables against one
+                                                  # handed them (512,
+                                                  # 1080p; default both)
     python -m rt_torch.measure occupancy [PATH]   # live rays, tiles, warps
     python -m rt_torch.measure occupancy lucy_512 # the recorder's work per
                                                   # bounce (or dragon_512)
@@ -648,6 +652,69 @@ def _mono_ms(width: int, height: int, bounces: int, record_: bool,
     cam_row = dispatch.pack_camera(sd.camera)
     return _profiled_ms(lambda: fn(packed, cam_row, 1000, **kw), reps,
                         "tris_mono_kernel")
+
+
+PACK_SIZES = {"512": (512, 512), "1080p": (1920, 1080)}
+
+
+def _device_busy_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() from torch.profiler: the sum of the
+    device time of every kernel, copy and fill one call issues, host gaps
+    left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages())
+    return total / reps / 1e3
+
+
+def pack(size: str = "", reps: int = 10):
+    """What ``fit_replay``'s one packing a fit saves a record: one
+    ``record_hits`` of Suzanne at the scene's own bounces that packs the
+    recorder's tables itself, against one handed the tables packed once
+    with the current material table swapped in (as ``fit_replay`` does),
+    by CUDA events and by the profiler's device time in turns (packs,
+    packed, packed, packs), at 512x512 and 1920x1080 (or the one SIZE
+    named); and ``pack_tri_table`` and ``material_table`` alone."""
+    for name in ([size] if size else PACK_SIZES):
+        w, h = PACK_SIZES[name]
+        sd = scenes.scene_suzanne(w, h, device="cuda")
+        packed = tris_kernel.pack_tri_table(sd.scene)
+        run = {
+            "packs": lambda: replay.record_hits(sd.scene, sd.camera,
+                                                sd.config, 1000),
+            "packed": lambda: replay.record_hits(
+                sd.scene, sd.camera, sd.config, 1000, packed=packed._replace(
+                    mats=tris_kernel.material_table(sd.scene)))}
+        same = all(torch.equal(a, b) for a, b in zip(run["packs"](),
+                                                     run["packed"]()))
+        ms = {k: [] for k in run}
+        for k in ("packs", "packed", "packed", "packs"):
+            ms[k].append(_event_ms(run[k], reps))
+        busy = {k: [] for k in run}
+        for k in ("packs", "packed", "packed", "packs"):
+            busy[k].append(_device_busy_ms(run[k], reps))
+        print(json.dumps({
+            "measure": "pack", "card": _card(), "size": [w, h],
+            "bounces": sd.config.bounces, "triangles": sd.scene.m,
+            "ms_per_record": ms,
+            "saved_ms_per_record": (sum(ms["packs"]) - sum(ms["packed"]))
+            / 2,
+            "device_busy_ms_per_record": busy,
+            "saved_device_ms_per_record": (sum(busy["packs"])
+                                           - sum(busy["packed"])) / 2,
+            "pack_tri_table_device_ms": _device_busy_ms(
+                lambda: tris_kernel.pack_tri_table(sd.scene), reps),
+            "pack_tri_table_ms": _event_ms(
+                lambda: tris_kernel.pack_tri_table(sd.scene), reps),
+            "material_table_ms": _event_ms(
+                lambda: tris_kernel.material_table(sd.scene), reps),
+            "records_equal": same}), flush=True)
 
 
 def record_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
@@ -1291,9 +1358,11 @@ def main(argv=None) -> int:
         return 1
     what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
             "lookup": lookup, "record": record, "oracle": oracle,
-            "kernels": kernels, "occupancy": occupancy, "raygen": raygen}
+            "kernels": kernels, "occupancy": occupancy, "raygen": raygen,
+            "pack": pack}
     names = (FITS if argv[:1] in (["fit"], ["lookup"], ["record"])
              else KERNEL_GROUPS if argv[:1] == ["kernels"]
+             else PACK_SIZES if argv[:1] == ["pack"]
              else RAYGEN_SIZES if argv[:1] == ["raygen"]
              else {**PATHS, **FITS} if argv[:1] == ["occupancy"] else PATHS)
     if (len(argv) not in (1, 2) or argv[0] not in what

@@ -1,5 +1,5 @@
 """PPM (P3) readback + golden comparison — counterpart of
-``rt/render/ppm.py`` (the Python path).
+``rt/render/ppm.py``.
 
 Writer: header ``P3\\n{w} {h} 255\\n``, all pixels on ONE line as
 ``"{r} {g} {b} "``; channel = raw LINEAR value * 255 with Rust ``as u8``
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from rt_torch.scene import native_bridge
+
 
 def image_to_u8(image: np.ndarray) -> np.ndarray:
     v = np.asarray(image, np.float32) * 255.0
@@ -19,7 +21,11 @@ def image_to_u8(image: np.ndarray) -> np.ndarray:
     return np.clip(np.trunc(v), 0.0, 255.0).astype(np.uint8)
 
 
-def render_ppm(image: np.ndarray) -> str:
+def render_ppm(image: np.ndarray, use_native: bool = True) -> str:
+    """The P3 text; through the C++ writer (``scene.native_bridge``) where
+    it builds, byte for byte the Python one below."""
+    if use_native and native_bridge.available():
+        return native_bridge.render_ppm(np.asarray(image, np.float32))
     h, w = image.shape[:2]
     body = "".join(f"{r} {g} {b} " for r, g, b in
                    image_to_u8(image).reshape(-1, 3))

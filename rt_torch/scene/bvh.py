@@ -22,6 +22,7 @@ import torch
 
 from rt_torch.config import MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_METAL
 from rt_torch.core.triangle import TriangleScene
+from rt_torch.scene import native_bridge
 from rt_torch.scene.objloader import Mesh
 
 F32_MAX = np.float32(3.4028235e38)
@@ -65,10 +66,34 @@ class Tree:
             [self.mat_id, np.full(len(a), mat_index, np.int32)])
         return self
 
-    def build(self):
+    def build(self, use_native: bool = True):
+        """use_native: the order and boxes from the C++ build
+        (``scene.native_bridge``) where it builds; the same arrays exactly
+        as the Python build below."""
         m = len(self.a)
         n = next_power_of_two(m)
+        if use_native and m > 0 and native_bridge.available():
+            tri_lo = np.minimum(np.minimum(self.a, self.b), self.c)
+            tri_hi = np.maximum(np.maximum(self.a, self.b), self.c)
+            order, self.bmin, self.bmax = native_bridge.bvh_build(
+                self.custom, tri_lo, tri_hi)
+            self._reorder(order)
+        else:
+            self._build_python(m, n)
 
+        # flat face normals
+        nrm = np.cross(self.b - self.a, self.c - self.a).astype(np.float32)
+        ln = np.sqrt(np.sum(nrm * nrm, axis=-1, dtype=np.float32))
+        with np.errstate(invalid="ignore", divide="ignore"):
+            self.custom = (nrm / ln[:, None]).astype(np.float32)
+        self.sizes = (n, m)
+        return self
+
+    def _reorder(self, order):
+        self.a, self.b, self.c = self.a[order], self.b[order], self.c[order]
+        self.mat_id = self.mat_id[order]
+
+    def _build_python(self, m: int, n: int):
         # BFS median-split sort
         order = np.arange(m)
         queue = [(0, n, 0)]
@@ -82,8 +107,7 @@ class Tree:
             mid = (i + j) // 2
             queue.append((i, mid, depth + 1))
             queue.append((mid, j, depth + 1))
-        self.a, self.b, self.c = self.a[order], self.b[order], self.c[order]
-        self.mat_id = self.mat_id[order]
+        self._reorder(order)
 
         # node AABBs, level by level (node k covers leaf slots under it)
         pad = n - m
@@ -101,14 +125,6 @@ class Tree:
             bmax[size:2 * size] = hi
             size //= 2
         self.bmin, self.bmax = bmin, bmax
-
-        # flat face normals
-        nrm = np.cross(self.b - self.a, self.c - self.a).astype(np.float32)
-        ln = np.sqrt(np.sum(nrm * nrm, axis=-1, dtype=np.float32))
-        with np.errstate(invalid="ignore", divide="ignore"):
-            self.custom = (nrm / ln[:, None]).astype(np.float32)
-        self.sizes = (n, m)
-        return self
 
 
 def build_tree(meshes) -> Tree:

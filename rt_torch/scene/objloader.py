@@ -1,5 +1,12 @@
-"""Wavefront OBJ loader — counterpart of ``rt/scene/objloader.py`` (the
-Python parser; the C++ fast path is not bridged yet).
+"""Wavefront OBJ loader — counterpart of ``rt/scene/objloader.py``.
+
+The bundled assets (``load_asset``) go through the C++ parser of
+``scene.native_bridge`` where it builds: on each of them it gives the
+Python parser's arrays exactly (tests/test_torch_app.py).  Other text goes
+through the Python parser (``parse_obj``) unless the caller asks for the
+C++ one: on a malformed line (``v 1 2``) the C++ parser reads a zero and
+goes on, where the Python one fails and the loader gives the reference's
+empty mesh.
 
 Only vertex positions survive; multi-object files merge because OBJ ``f``
 indices are global; a parse failure gives an empty mesh, as the reference's
@@ -13,6 +20,8 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from rt_torch.scene import native_bridge
 
 ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "rt", "scene", "assets")
@@ -49,8 +58,10 @@ def parse_obj(text: str):
             np.array(faces, np.uint32))
 
 
-def load_obj(source, material=None) -> Mesh:
-    """Load an OBJ from bytes, text or a path."""
+def load_obj(source, material=None, use_native: bool = False) -> Mesh:
+    """Load an OBJ from bytes, text or a path; a parse failure gives an
+    empty mesh.  use_native: the C++ parser where it builds (for
+    well-formed files only, see above)."""
     try:
         if isinstance(source, (bytes, bytearray)):
             text = source.decode("utf-8", errors="replace")
@@ -60,7 +71,14 @@ def load_obj(source, material=None) -> Mesh:
                 text = f.read()
         else:
             text = source
-        v, f = parse_obj(text)
+        v = None
+        if use_native and native_bridge.available():
+            try:
+                v, f = native_bridge.parse_obj(text)
+            except RuntimeError:         # the C++ parser refused the text
+                v = None
+        if v is None:
+            v, f = parse_obj(text)
     except (ValueError, IndexError, AttributeError, OSError):
         v = np.zeros((0, 3), np.float32)
         f = np.zeros((0,), np.uint32)
@@ -68,4 +86,5 @@ def load_obj(source, material=None) -> Mesh:
 
 
 def load_asset(name: str, material=None) -> Mesh:
-    return load_obj(os.path.join(ASSET_DIR, name), material)
+    return load_obj(os.path.join(ASSET_DIR, name), material,
+                    use_native=True)

@@ -891,3 +891,156 @@ def test_cuda_flat_kernel_renders_a_4096_square_frame_bitwise():
         sky_from_final_dir=cfg.sky_from_final_dir)
     assert k.shape == (4096, 4096, 3)
     assert _bit_equal(k, p.permute(1, 2, 0)) and bool(torch.isfinite(k).all())
+
+
+# ---------------------------------------------------------------------------
+# The soft surrogates' recoveries (rt_torch.grad.soft, soft_tris): the JAX
+# package's own recovery tests (tests/test_grad.py, tests/test_soft_tris.py)
+# run on the card, with their step counts and guards.  Too slow for the CPU
+# suite; tests/test_torch_soft*.py hold the same functions against the JAX
+# package at a few steps there.
+# ---------------------------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _small(builder, w, h, bounces, spp=1):
+    sd = builder(w, h, device="cuda")
+    return dataclasses.replace(sd, config=dataclasses.replace(
+        sd.config, bounces=bounces, samples_per_frame=spp))
+
+
+def _cube_cp():
+    from rt_torch.grad.params import CameraParams
+
+    sd = tscenes.scene_cube(8, 8, device="cuda")
+    return CameraParams.create(sd.camera.eye[:3], (0.0, 0.0, 0.0),
+                               float(sd.camera.focal_length),
+                               float(sd.camera.focal_blur),
+                               float(sd.camera.fov), device="cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_cube_free_eye_recovery_is_gauge_limited():
+    """tests/test_soft_tris.py:99 on the card: free 3-dof eye recovery on
+    the cube against the exact render converges in loss (5x) and moves the
+    eye closer, not to it."""
+    _needs_card()
+    import numpy as np
+
+    from rt_torch.grad.params import host_camera, look_at
+    from rt_torch.grad.soft_tris import recover_camera_tris
+
+    sd = _small(tscenes.scene_cube, 96, 72, 2, spp=4)
+    true_cp = _cube_cp()
+    target = tdispatch.render_color(sd.scene, host_camera(look_at(true_cp)),
+                                    sd.config, TIME)
+    v = true_cp.eye.cpu().numpy()
+    a = np.deg2rad(1.8)
+    c, s = np.cos(a), np.sin(a)
+    v2 = np.array([c * v[0] + s * v[2], v[1], -s * v[0] + c * v[2]],
+                  np.float32)
+    init = true_cp._replace(eye=torch.from_numpy(v2).cuda())
+    rec, _, losses = recover_camera_tris(
+        sd.scene, sd.config, target, init, steps=160, learning_rate=8e-3,
+        taus=(0.06, 0.02, 0.008), optimize_fields=("eye",))
+    err0 = float((init.eye - true_cp.eye).abs().max())
+    err1 = float((rec.eye - true_cp.eye).abs().max())
+    assert losses[-1] < losses[0] / 5, f"loss {losses[0]} -> {losses[-1]}"
+    assert err1 < err0, f"eye error {err0} -> {err1}"
+
+
+@pytest.mark.gpu
+def test_cuda_cube_orbit_recovery_from_exact_target():
+    """tests/test_soft_tris.py:245 on the card: theta and phi 10x, fov 2x."""
+    _needs_card()
+    import numpy as np
+
+    from rt_torch.grad.soft_tris import OrbitParams, recover_orbit_tris
+
+    sd = _small(tscenes.scene_cube, 96, 72, 2, spp=4)
+    look_target = (0.0, 0.1, -3.0)
+    fl = float(sd.camera.focal_length)
+    true_op = OrbitParams.from_eye(sd.camera.eye[:3], look_target,
+                                   float(sd.camera.fov), device="cuda")
+    target = tdispatch.render_color(sd.scene, sd.camera, sd.config, TIME)
+    init = OrbitParams.create(float(true_op.radius),
+                              float(true_op.theta) + np.deg2rad(2.5),
+                              float(true_op.phi) - np.deg2rad(1.5),
+                              float(true_op.fov) + 0.03, device="cuda")
+    rec, losses = recover_orbit_tris(
+        sd.scene, sd.config, target, init, look_target, focal_length=fl,
+        focal_blur=float(sd.camera.focal_blur), steps=200,
+        learning_rate=8e-3, taus=(0.06, 0.02, 0.008, 0.003))
+    errs = lambda op: [abs(float(getattr(op, k)) - float(getattr(true_op, k)))
+                       for k in ("theta", "phi", "fov")]
+    e0, e1 = errs(init), errs(rec)
+    assert e1[0] < e0[0] / 10, f"theta {e0[0]} -> {e1[0]}"
+    assert e1[1] < e0[1] / 10, f"phi {e0[1]} -> {e1[1]}"
+    assert e1[2] < e0[2] / 2, f"fov {e0[2]} -> {e1[2]}"
+    assert losses[-1] < losses[0]
+
+
+def _metal(bounces):
+    return _small(tscenes.test_scene_metal, 64, 32, bounces)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fields,init_eye,init_fov,lr,limit", [
+    (("eye",), (0.35, -0.25, 3.5), 0.2, 2e-2, 0.08),
+    (("fov",), (0.0, 0.0, 3.5), 0.26, 1e-2, 0.02)])
+def test_cuda_soft_camera_recovery(fields, init_eye, init_fov, lr, limit):
+    """tests/test_grad.py:194 (an eye offset) and :212 (a fov offset) on the
+    card: annealed soft-visibility descent, 240 steps."""
+    _needs_card()
+    import numpy as np
+
+    from rt_torch.grad.params import CameraParams, look_at
+    from rt_torch.grad.soft import recover_camera, soft_render
+
+    sd = _metal(3)
+    make = lambda eye, fov: CameraParams.create(
+        eye, (0.0, 0.0, 0.0), 3.5, 0.04, np.pi * fov, device="cuda")
+    true_cp = make((0.0, 0.0, 3.5), 0.2)
+    with torch.no_grad():
+        target = soft_render(sd.scene, look_at(true_cp), sd.config, TIME,
+                             tau=0.02)
+    rec, _ = recover_camera(sd.scene, sd.config, target,
+                            make(init_eye, init_fov), steps=240,
+                            learning_rate=lr, optimize_fields=fields)
+    if fields == ("eye",):
+        err = float((rec.eye - true_cp.eye).abs().max())
+    else:
+        err = abs(float(rec.fov) - float(true_cp.fov))
+    assert err < limit, f"{fields} error {err}"
+
+
+@pytest.mark.gpu
+def test_cuda_sphere_geometry_recovery():
+    """tests/test_grad.py:371 on the card: one sphere's center recovered on
+    the soft surrogate, then validated with the differentiable exact
+    renderer (the recovered scene's image far closer to the truth)."""
+    _needs_card()
+    from rt_torch.grad import (SphereParams, apply_params, image_mse,
+                               render_color_diff)
+    from rt_torch.grad.soft import recover_geometry, soft_render
+
+    sd = _metal(2)
+    idx = 1
+    with torch.no_grad():
+        target = soft_render(sd.scene, sd.camera, sd.config, TIME, tau=0.02)
+    wrong = sd.scene.center.clone()
+    wrong[idx] += wrong.new_tensor([0.35, -0.25, 0.2])
+    init = SphereParams(center=wrong, radius=sd.scene.radius)
+    rec, _ = recover_geometry(sd.scene, sd.camera, sd.config, target, init,
+                              sphere_index=idx, steps=180,
+                              learning_rate=3e-2)
+    err = float((rec.center[idx] - sd.scene.center[idx]).abs().max())
+    assert err < 0.06, f"center error {err}"
+    with torch.no_grad():
+        exact = render_color_diff(sd.scene, sd.camera, sd.config, TIME)
+        mse = lambda p: float(image_mse(render_color_diff(
+            apply_params(sd.scene, p), sd.camera, sd.config, TIME), exact))
+        assert mse(rec) < 0.05 * mse(init)

@@ -5,6 +5,7 @@ stand-in refs, and NumPy bridges between the two packages' scene
 containers."""
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,69 @@ from jax.experimental import pallas as pl
 from rt.kernels import sphere_kernel as jsk
 from rt.kernels import tris_kernel as jtk
 from rt_torch import convert
+
+
+class JaxRefs:
+    """Outputs of JAX functions that a test file holds the port against,
+    kept bit for bit in an ``.npz`` beside the tests (``tests/jax_refs/``).
+
+    ``refs(key, compute)`` gives the output stored under ``key``;
+    ``compute`` makes it with the JAX package from the same seeded inputs
+    the test gives the port, and runs only as ``RT_TORCH_JAX_REFS`` says:
+
+    * unset (the suite): the stored output; eager JAX compiles every
+      primitive on its first call, seconds a surrogate, more than the CPU
+      suite can spend on them;
+    * ``check``: runs ``compute`` and requires the stored output to be
+      bit-equal to it, then goes on with it;
+    * ``write``: runs ``compute`` and stores its output.
+
+    ``compute`` returns an array or a flat dict of arrays (JAX or NumPy;
+    entries that are None are left out).
+    """
+
+    def __init__(self, test_file):
+        name = os.path.splitext(os.path.basename(test_file))[0]
+        self.path = os.path.join(os.path.dirname(os.path.abspath(test_file)),
+                                 "jax_refs", name + ".npz")
+        self.mode = os.environ.get("RT_TORCH_JAX_REFS", "")
+        assert self.mode in ("", "check", "write"), self.mode
+        self.stored = None
+        self.written = set()
+
+    def __call__(self, key, compute):
+        if self.stored is None:
+            self.stored = {}
+            if os.path.exists(self.path):
+                with np.load(self.path) as f:
+                    self.stored = dict(f)
+        if not self.mode:
+            if key in self.stored:
+                return self.stored[key]
+            out = {k[len(key) + 1:]: v for k, v in self.stored.items()
+                   if k.startswith(key + "/")}
+            assert out, (f"{key} is not in {self.path}: make it with "
+                         "RT_TORCH_JAX_REFS=write")
+            return out
+        value = compute()
+        if isinstance(value, dict):
+            value = {k: v for k, v in value.items() if v is not None}
+        flat = ({f"{key}/{k}": np.asarray(v) for k, v in value.items()}
+                if isinstance(value, dict) else {key: np.asarray(value)})
+        if self.mode == "check":
+            for k, v in flat.items():
+                old = self.stored.get(k)
+                assert old is not None and old.dtype == v.dtype \
+                    and old.shape == v.shape \
+                    and old.tobytes() == v.tobytes(), k
+        else:                 # no call's keys clash with another's
+            assert not flat.keys() & self.written, flat.keys() & self.written
+            self.written |= flat.keys()
+            self.stored.update(flat)
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            np.savez_compressed(self.path, **self.stored)
+        return ({k: flat[f"{key}/{k}"] for k in value}
+                if isinstance(value, dict) else flat[key])
 
 
 def scene_fields(jscene) -> dict:
