@@ -1317,6 +1317,243 @@ def phase_app():
                          f"launches are not 8 K2 and 16 K3 ({launches})")
 
 
+# the dist phase's CLI render: Suzanne at full width, 8 bounces (4 K3
+# launches a frame), 8 frames in batches of 4
+DIST_SIZE = 512
+DIST_CLI = ["5", "--bounces", "8", "--size", f"{DIST_SIZE}x{DIST_SIZE}",
+            "--frames", "8", "--batch", "4"]
+DIST_FIT = dict(time=1000, steps=8, rerecord_every=4, learning_rate=5e-2)
+DIST_TIMES = [1000, 1010]
+DIST_FRAMES = 64          # the timed window of measure_multihost
+
+
+def _dist_spp2():
+    """(packed Suzanne 512x512 at 2 samples a pixel, camera, config)."""
+    sd = measure.scene_def("suzanne", DEV)
+    cfg = dataclasses.replace(sd.config, samples_per_frame=2)
+    return dispatch.pack_scene(sd.scene, cfg), sd.camera, cfg
+
+
+def _dist_run(mesh, out_ppm):
+    """What a rank of the dist phase runs on ``mesh``: the sharded CLI
+    render, the spp-2 wave band, the 8-step 1080p fit, the sample-parallel
+    mean, global rays/s and scaling; each with its launches."""
+    from rt_torch import dist as rdist
+    from rt_torch.grad.train import fit_replay
+
+    res = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        res[name] = dict(seconds=time.perf_counter() - t0, launches={
+            k: v for k, v in dispatch.launch_counts().items() if v})
+        return value
+
+    res["cli_rc"] = counted("cli", lambda: cli.main(
+        DIST_CLI + ["--sharded", "-o", out_ppm]))
+    scene, camera, cfg = _dist_spp2()
+    band = counted("wave_spp2", lambda: rdist.sharded_wave_render_frames(
+        scene, camera, cfg, DIST_TIMES, mesh))
+    fit = measure.fit_setup("suzanne_1080p", mesh.device)
+    fit_replay(*fit, **(DIST_FIT | dict(steps=2)), mesh=mesh)   # warm-up
+    _, losses = counted("fit", lambda: fit_replay(*fit, **DIST_FIT,
+                                                  mesh=mesh))
+    res["fit"]["ms_per_step"] = res["fit"]["seconds"] * 1e3 / len(losses)
+    res["losses"] = losses
+    sd = measure.scene_def("suzanne", DEV)
+    mean = counted("sample", lambda: rdist.sample_sharded_render(mesh)(
+        dispatch.pack_scene(sd.scene), sd.camera, DIST_TIMES, sd.config))
+    rays = rdist.measure_multihost(sd, frames=DIST_FRAMES, warmup=2)
+    res["sharded_ms_per_frame"] = DIST_SIZE ** 2 / rays * 1e3
+    scaling = rdist.measure_scaling(sd, frames=DIST_FRAMES, warmup=2)
+    res["scaling"] = dict(topology=scaling.topology,
+                          ranks=scaling.device_counts,
+                          rays_per_s=scaling.rays_per_s,
+                          efficiency=scaling.efficiency)
+    return res, band.cpu().numpy(), mean.cpu().numpy()
+
+
+def dist_worker(outdir: str):
+    """One rank of the dist phase's two-process group (torchrun's
+    variables in the environment): ``_dist_run``, written to OUTDIR."""
+    from rt_torch import dist as rdist
+
+    rdist.multihost_init()
+    mesh = rdist.make_mesh()
+    res, band, mean = _dist_run(
+        mesh, os.path.join(outdir, "world2.ppm"))
+    res |= dict(rank=mesh.rank, backend=mesh.backend, device=str(mesh.device),
+                band=list(mesh.band(DIST_SIZE)))
+    np.savez(os.path.join(outdir, f"rank{mesh.rank}.npz"), band=band,
+             mean=mean)
+    with open(os.path.join(outdir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _two_ranks(outdir: str) -> list:
+    """Run ``dist_worker`` in two processes on this card (gloo: NCCL
+    refuses two ranks on one device); their results, rank by rank."""
+    from rt_torch.dist.sharding import free_port
+
+    env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(open(os.path.join(outdir, f"log{r}.txt"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             outdir], env=env | dict(RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + 300
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            raise SystemExit(f"dist: rank {r} of 2 exited {p.returncode}:\n"
+                             f"{text[-4000:]}")
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            res = json.load(f)
+        with np.load(os.path.join(outdir, f"rank{r}.npz")) as z:
+            res["band_array"], res["mean_array"] = z["band"], z["mean"]
+        res["log_tail"] = text[-600:]
+        out.append(res)
+    return out
+
+
+def phase_dist():
+    """``rt_torch.dist`` on the card, against the port's own unsharded
+    path: (a) a group of one over NCCL in this process, (b) two processes
+    over gloo sharing the card (rows 0-255 and 256-511).  In each: the
+    CLI's ``--sharded`` Suzanne 512x512 b8 PPM byte-equal to the unsharded
+    one, with K2 8 and K3 32 launches a rank; (b) the spp-2 wave band
+    (K4) bit-equal to its rows of the unsharded frames; the 8-step
+    ``suzanne_1080p`` fit (K9 twice a rank) within rtol 2e-5 of the
+    unsharded losses; ``sample_sharded_render`` within 2e-6 of the mean
+    of the sequential frames; ``measure_multihost`` and ``measure_scaling``
+    rays/s.  Any mismatch raises."""
+    import torch.distributed as dist
+
+    from rt_torch import dist as rdist
+    from rt_torch.grad.train import fit_replay
+
+    t0 = time.perf_counter()
+    want_cli = {"wave_first": 8, "wave_bounce": 32}
+    with tempfile.TemporaryDirectory() as d:
+        plain = os.path.join(d, "plain.ppm")
+        dispatch.reset_launch_counts()
+        rc_plain = cli.main(DIST_CLI + ["-o", plain])
+        plain_launches = {k: v for k, v in dispatch.launch_counts().items()
+                          if v}
+        # the unsharded references
+        scene, camera, cfg = _dist_spp2()
+        frames = dispatch.render_color_frames(scene, camera, cfg,
+                                              DIST_TIMES, DEV).cpu().numpy()
+        fit = measure.fit_setup("suzanne_1080p", DEV)
+        fit_replay(*fit, **(DIST_FIT | dict(steps=2)), device=DEV)  # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        tf = time.perf_counter()
+        _, losses = fit_replay(*fit, **DIST_FIT, device=DEV)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - tf) * 1e3 / len(losses)
+        fit_launches = {k: v for k, v in dispatch.launch_counts().items()
+                        if v}
+        sd = measure.scene_def("suzanne", DEV)
+        seqs = [dispatch.render_color(sd.scene, sd.camera, sd.config, t,
+                                      DEV).cpu().numpy() for t in DIST_TIMES]
+        r = measure.renderer("suzanne", device=DEV)
+        r.draw_frames(2)
+        unsharded_ms = measure._ms_per_frame(r, DIST_FRAMES)
+
+        # (a) a group of one over NCCL
+        assert not dist.is_initialized()
+        rdist.multihost_init()
+        mesh = rdist.make_mesh()
+        world1, band1, mean1 = _dist_run(mesh, os.path.join(d, "world1.ppm"))
+        world1 |= dict(rank=0, backend=mesh.backend,
+                       band=list(mesh.band(DIST_SIZE)), band_array=band1,
+                       mean_array=mean1)
+        dist.destroy_process_group()
+        # (b) two processes over gloo on this card
+        world2 = _two_ranks(d)
+
+        with open(plain, "rb") as f:
+            plain_bytes = f.read()
+        checks, report = {}, {}
+        for name, runs, ppm in (("world1", [world1], "world1.ppm"),
+                                ("world2", world2, "world2.ppm")):
+            with open(os.path.join(d, ppm), "rb") as f:
+                ppm_equal = f.read() == plain_bytes
+            full = np.concatenate([x["band_array"] for x in runs], axis=1)
+            # the sample-parallel mean: of the first len(runs) times
+            seq = np.mean(seqs[:len(runs)], axis=0)
+            checks[name] = dict(
+                backend=[x["backend"] for x in runs] == (
+                    ["nccl"] if name == "world1" else ["gloo", "gloo"]),
+                bands=[x["band"] for x in runs] == (
+                    [[0, DIST_SIZE]] if name == "world1"
+                    else [[0, DIST_SIZE // 2], [DIST_SIZE // 2,
+                                               DIST_SIZE // 2]]),
+                cli_rc=all(x["cli_rc"] == 0 for x in runs),
+                cli_ppm_byte_equal=ppm_equal,
+                cli_launches=all(x["cli"]["launches"] == want_cli
+                                 for x in runs),
+                wave_spp2_bit_equal=bool(np.array_equal(full, frames)),
+                wave_spp2_k4=all(x["wave_spp2"]["launches"].get(
+                    "wave_raygen", 0) == 1 for x in runs),
+                fit_losses=all(bool(np.allclose(x["losses"], losses,
+                                                rtol=2e-5, atol=0))
+                               for x in runs),
+                fit_k9_twice=all(x["fit"]["launches"].get("tris_record")
+                                 == 2 for x in runs),
+                sample_2e6=all(float(np.abs(x["mean_array"] - seq).max())
+                               <= 2e-6 for x in runs))
+            report[name] = dict(
+                ranks=len(runs), backend=runs[0]["backend"],
+                bands=[x["band"] for x in runs],
+                cli_seconds=[x["cli"]["seconds"] for x in runs],
+                cli_launches=[x["cli"]["launches"] for x in runs],
+                wave_spp2_launches=[x["wave_spp2"]["launches"]
+                                    for x in runs],
+                fit_launches=[x["fit"]["launches"] for x in runs],
+                fit_ms_per_step=[x["fit"]["ms_per_step"] for x in runs],
+                fit_loss_rel_max=max(
+                    float(np.max(np.abs(np.asarray(x["losses"]) - losses)
+                                 / np.asarray(losses))) for x in runs),
+                sample_max_abs=max(float(np.abs(x["mean_array"] - seq).max())
+                                   for x in runs),
+                sharded_ms_per_frame=runs[0]["sharded_ms_per_frame"],
+                scaling=runs[0]["scaling"])
+    checks["plain"] = dict(cli_rc=rc_plain == 0,
+                           cli_launches=plain_launches == want_cli,
+                           fit_k9_twice=fit_launches.get("tris_record") == 2)
+    ok = all(v for c in checks.values() for v in c.values())
+    say(phase="dist", ok=ok, nvidia_smi=nvidia_smi_line(), checks=checks,
+        unsharded=dict(ms_per_frame=unsharded_ms, fit_ms_per_step=fit_ms,
+                       fit_losses=losses),
+        **report, seconds=time.perf_counter() - t0)
+    if not ok:
+        raise SystemExit(f"dist: a check failed: {checks}")
+
+
 def phase_golden():
     """tests/golden_tris (the JAX oracle's images): 128x128, 8 frames from
     time 1000 (lucy, dragon: 96x96, 2 frames) under the 0.05 % bound (0.6 %
@@ -1350,6 +1587,7 @@ def main():
     phase_config5()
     phase_soft_devices()
     phase_app()
+    phase_dist()
     probe_records, probe_launches = phase_probes()
     phase_kernels(scenes.scene_suzanne, 128, (2, 1))
     launches = phase_render()
@@ -1391,4 +1629,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2])
+    else:
+        main()

@@ -6,7 +6,7 @@ Usage:
                            [--spp S] [--bounces B] [--seed N] [--device cpu]
                            [--mono] [--oracle] [--time-step MS]
                            [--start-time T] [--batch N] [--stats]
-                           [--checkpoint PATH] [--resume]
+                           [--checkpoint PATH] [--resume] [--sharded]
 
 Renders a scene (1 sphere_simple, 2 sphere_globe, 3 quad, 4 cube, 5 suzanne,
 6 lucy, 7 dragon, 8 sphere_cover; another id gives scene 1) progressively
@@ -25,6 +25,15 @@ Frames are drawn in batches of ``--batch`` (one ``draw_frames`` call each);
 saves the render state after every batch.  ``--resume`` continues from that
 file where it exists: the resumed render is bit for bit the uninterrupted
 one.
+
+``--sharded`` splits the image rows among the ranks of a process group
+(``rt_torch.dist``): run it under ``python -m torch.distributed.run
+--nproc-per-node N -m rt_torch.cli ... --sharded``, or alone as a group of
+one.  A triangle scene on the kernels renders through the sharded wave path
+(``sharded_wave_frames``), ``--oracle`` through the sharded oracle; the
+sphere kernels and ``--mono`` take no row band and exit 2, as does a height
+the ranks do not divide, before any rendering.  Rank 0 writes the PPM and
+the checkpoint and prints ``--stats``; ``--resume`` loads on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ import os
 import random
 import sys
 import time as time_mod
+
+import torch
 
 from rt_torch.render.checkpoint import load_render_state, save_render_state
 from rt_torch.render.ppm import write_ppm
@@ -85,6 +96,9 @@ def parse_args(argv=None):
                    help="checkpoint file, saved after every batch")
     p.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint where it exists")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the image rows among the ranks of a process "
+                        "group (torchrun's variables, or a group of one)")
     return p.parse_args(argv)
 
 
@@ -136,6 +150,8 @@ def main(argv=None) -> int:
           f"bounces={sd.config.bounces}, spp={spp}, device={args.device}, "
           f"backend={sd.config.backend}",
           file=sys.stderr)
+    if args.sharded:
+        return _main_sharded(args, sd, w, h)
     r = ProgressiveRenderer(sd, device=args.device)
     r.set_time(args.start_time)
     done = 0
@@ -163,6 +179,96 @@ def main(argv=None) -> int:
     print(f"wrote {args.output} ({stats.summary()}, first call included)",
           file=sys.stderr)
     return 0
+
+
+def _sharded_refusal(sd, mesh, h) -> str | None:
+    """Why ``--sharded`` cannot render this, or None."""
+    if h % mesh.world_size:
+        return f"height {h} not divisible by {mesh.world_size} processes"
+    if sd.config.backend == "kernels":
+        if sd.kind != "triangles":
+            return ("the sphere kernels take no row band: shard a sphere "
+                    "scene through --oracle")
+        if sd.config.tris_path == "mono":
+            return ("--mono takes no row band: shard a triangle scene on "
+                    "the wave path")
+    return None
+
+
+def _main_sharded(args, sd, w: int, h: int) -> int:
+    """The render of ``main`` with the rows split among the group's ranks
+    (``rt_torch.dist``); tears down only a group it formed itself."""
+    import torch.distributed as dist
+
+    from rt_torch import dist as rdist
+    from rt_torch.kernels import dispatch
+    from rt_torch.render.renderer import RenderState, init_state
+
+    created = rdist.multihost_init(device=args.device)
+    try:
+        mesh = rdist.make_mesh(device=args.device)
+        why = _sharded_refusal(sd, mesh, h)
+        if why is not None:
+            print(f"--sharded: {why}", file=sys.stderr)
+            return 2
+        print(f"sharded over {mesh.world_size} processes ({mesh.backend})",
+              file=sys.stderr)
+        lead = mesh.rank == 0
+        scene = rdist.shard_scene(sd.scene, mesh)
+        if sd.config.backend == "oracle":
+            step = rdist.sharded_render_frame(mesh)
+
+            def frames(state, t0, n):
+                for i in range(n):
+                    state = step(scene, sd.camera, state,
+                                 (t0 + i * args.time_step) & 0xFFFFFFFF,
+                                 sd.config)
+                return state
+        else:
+            scene = dispatch.pack_scene(scene, sd.config)
+            run = rdist.sharded_wave_frames(mesh)
+
+            def frames(state, t0, n):
+                return run(scene, sd.camera, state, t0, args.time_step,
+                           sd.config, n)
+
+        state = init_state(sd.config, "cpu")
+        t = args.start_time & 0xFFFFFFFF
+        if (args.resume and args.checkpoint
+                and os.path.exists(args.checkpoint)):
+            state, t = load_render_state(args.checkpoint, device="cpu")
+            if lead:
+                print(f"resumed at frame {state.frame_count} (time {t})",
+                      file=sys.stderr)
+        state = rdist.shard_state(state, mesh)
+        done = state.frame_count
+        stats = RenderStats(width=w, height=h, bounces=sd.config.bounces,
+                            samples_per_frame=sd.config.samples_per_frame)
+        while done < args.frames:
+            n = min(args.batch, args.frames - done)
+            t0 = time_mod.perf_counter()
+            state = frames(state, t, n)
+            device_sync(state.image)
+            stats.update(n, time_mod.perf_counter() - t0)
+            t = (t + n * args.time_step) & 0xFFFFFFFF
+            done += n
+            if args.checkpoint:
+                image = rdist.gather_image(state, mesh)
+                if lead:
+                    save_render_state(args.checkpoint, RenderState(
+                        torch.from_numpy(image), state.frame_count), t)
+            if args.stats and lead:
+                print(f"  frame {done}/{args.frames}: {stats.summary()}",
+                      file=sys.stderr)
+        image = rdist.gather_image(state, mesh)
+        if lead:
+            write_ppm(args.output, image)
+            print(f"wrote {args.output} ({stats.summary()}, first call "
+                  "included)", file=sys.stderr)
+        return 0
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -119,14 +119,20 @@ def make_ray(camera: Camera, uv, state, normalize_defocus_dir: bool):
 
 
 def generate_primary_rays(camera: Camera, width: int, height: int, time,
-                          normalize_defocus_dir: bool, device="cuda"):
-    """Per-pixel seed + AA jitter + uv + make_ray for a (H, W) image.
-    time: the u32 time uniform (int).  Returns (state (H, W) int64 of u32
-    values, origin (H, W, 3), direction (H, W, 3))."""
-    y = torch.arange(height, dtype=torch.int64, device=device)[:, None]
+                          normalize_defocus_dir: bool, device="cuda",
+                          row0: int = 0, rows: int | None = None):
+    """Per-pixel seed + AA jitter + uv + make_ray for a (H, W) image, or
+    for its band of ``rows`` rows from ``row0`` (the seed and the uv take
+    the global (x, y) and ``height``, so a band's rays are those rows of
+    the frame's bit for bit).  time: the u32 time uniform (int).  Returns
+    (state (rows, W) int64 of u32 values, origin (rows, W, 3), direction
+    (rows, W, 3))."""
+    rows = height - row0 if rows is None else rows
+    y = torch.arange(row0, row0 + rows, dtype=torch.int64,
+                     device=device)[:, None]
     x = torch.arange(width, dtype=torch.int64, device=device)[None, :]
-    x = x.expand(height, width)
-    y = y.expand(height, width)
+    x = x.expand(rows, width)
+    y = y.expand(rows, width)
     state = rng.seed(x, y, height, int(time) & rng.MASK)
     state, jx = rng.next_float(state)
     state, jy = rng.next_float(state)

@@ -233,13 +233,15 @@ def _tris_replay_hit(scene, tabs, o, d, idx, row=None):
 
 def replay_color(scene, camera, config: RenderConfig, time, hits,
                  remat: bool = True, frozen_geometry: bool = True,
-                 _pre_rows=None):
+                 _pre_rows=None, row0: int = 0):
     """Differentiable (H, W, 3) color with the hit sequence FROZEN.
 
     hits: (bounces, H, W) int32 scene-order primitive ids (-1 = miss) on the
-    scene's device.  Gradients flow through the continuous transport (t,
-    point, normal, scatter, attenuation, sky) to the scene tensors and the
-    camera; the discrete path structure is fixed.
+    scene's device, or the band (bounces, rows, W) of the frame's rows
+    from ``row0``: the color is then that band's (rows, W, 3), bit for bit
+    those rows of the frame's.  Gradients flow through the continuous
+    transport (t, point, normal, scatter, attenuation, sky) to the scene
+    tensors and the camera; the discrete path structure is fixed.
 
     remat: checkpoint each bounce (``torch.utils.checkpoint``): the backward
     pass recomputes a bounce's intermediates instead of keeping them.
@@ -252,7 +254,8 @@ def replay_color(scene, camera, config: RenderConfig, time, hits,
     """
     state, origin, direction = camera_mod.generate_primary_rays(
         camera, config.width, config.height, time,
-        config.normalize_defocus_dir, device=hits.device)
+        config.normalize_defocus_dir, device=hits.device, row0=row0,
+        rows=hits.shape[1])
 
     rows = None
     if isinstance(scene, SphereArray):

@@ -16,6 +16,7 @@ import torch
 
 from rt_torch.config import RenderConfig
 from rt_torch.core.sphere import SphereArray
+from rt_torch.dist.sharding import all_reduce
 from rt_torch.grad.diff_render import render_image_diff
 from rt_torch.grad.loss import image_mse
 from rt_torch.grad.params import (SphereParams, TriangleParams, apply_params,
@@ -132,13 +133,26 @@ def _as_leaves(params: dict, device) -> dict:
     return {k: type(p)(*(leaf(v) for v in p)) for k, p in params.items()}
 
 
+def _all_reduce_grads(mesh, leaves) -> None:
+    """The gradients of ``leaves`` summed over the mesh's ranks in one
+    ``all_reduce``; a leaf this rank's band did not reach counts zero."""
+    flat = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
+                      else p.grad.reshape(-1) for p in leaves])
+    all_reduce(mesh, flat)
+    at = 0
+    for p in leaves:
+        p.grad = flat[at:at + p.numel()].view_as(p)
+        at += p.numel()
+
+
 def fit_replay(base_scene, base_camera, config: RenderConfig, target,
                *, time: int = 1000, steps: int = 120,
                rerecord_every: int = 20, learning_rate: float = 2e-2,
                scene_fields=dict(albedo=True, mat_param=False),
                init_params: Optional[dict] = None,
                frozen_geometry: bool = True, recorder: str = "kernels",
-               log_every: int = 0, loss_weight=None, device="cuda"):
+               log_every: int = 0, loss_weight=None, device="cuda",
+               mesh=None):
     """Path-replay inverse rendering — the production loop.
 
     Outer loop: record the Monte-Carlo path structure at the current
@@ -163,6 +177,16 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
 
     Adam as ``optax.adam`` sets it: b1 0.9, b2 0.999, eps 1e-8, no weight
     decay.
+
+    ``mesh``: an optional ``dist.Mesh`` — data parallelism with pixels as
+    the batch, on the mesh's device.  Each rank records the whole frame
+    and keeps its row band of the hits, the pre-gathered rows, the target
+    and ``loss_weight``; its loss is the band's sum over the frame's count
+    (H*W*3, or the whole weight's sum), so the ranks' gradients add up to
+    the unsharded one: one ``all_reduce(SUM)`` of them a step, before
+    ``optimizer.step()``.  Parameters and the Adam state stay replicated.
+    A block's losses are summed across the ranks once, at its end.  The
+    losses match the unsharded loop's up to the order of the sums.
     """
     is_tris = not isinstance(base_scene, SphereArray)
     params = dict(init_params) if init_params else {}
@@ -182,23 +206,37 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
         raise ValueError(f"recorder {recorder!r}: kernels or oracle")
     record = record_hits if recorder == "kernels" else record_hits_oracle
 
+    if mesh is not None:
+        device = mesh.device
+    row0, rows = ((0, config.height) if mesh is None
+                  else mesh.band(config.height))
+    band = slice(row0, row0 + rows)
     params = _as_leaves(params, device)
     optimizer = _adam(params, learning_rate)
-    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    leaves = optimizer.param_groups[0]["params"]
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=device)[band]
     lw = None
     if loss_weight is not None:
         lw = torch.as_tensor(loss_weight, dtype=torch.float32, device=device)
         lw_norm = torch.sum(lw) * 3.0 + 1e-9
+        lw = lw[band]
+    # the frame's count as a tensor divisor (CUDA division by a Python
+    # scalar multiplies by its reciprocal)
+    count = torch.tensor(float(config.height * config.width * 3),
+                         dtype=torch.float32, device=device)
 
     def loss_of(p, hits, pre_rows):
         img = replay_color(_apply_scene(base_scene, p),
                            camera_from_params(p.get("camera"), base_camera),
                            config, time, hits,
                            frozen_geometry=frozen_geometry,
-                           _pre_rows=pre_rows)
-        if lw is None:
+                           _pre_rows=pre_rows, row0=row0)
+        if lw is None and mesh is None:
             return image_mse(img, target)
         d = img - target
+        if lw is None:
+            return torch.sum(d * d) / count
         return torch.sum(d * d * lw[..., None]) / lw_norm
 
     pre_tab = (_tris_replay_tables(base_scene)[0]
@@ -222,6 +260,8 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
             _, hits = record(
                 scene, camera_from_params(params.get("camera"), base_camera),
                 config, time, device=device, **kw)
+            if mesh is not None:
+                hits = hits[:, band].contiguous()
             pre_rows = (None if pre_tab is None
                         else _gather_tri_rows(pre_tab, hits))
         block = []
@@ -229,9 +269,14 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
             optimizer.zero_grad(set_to_none=True)
             loss = loss_of(params, hits, pre_rows)
             loss.backward()
+            if mesh is not None:
+                _all_reduce_grads(mesh, leaves)
             optimizer.step()
             block.append(loss.detach())
-        losses.extend(torch.stack(block).tolist())
+        block = torch.stack(block)
+        if mesh is not None:
+            all_reduce(mesh, block)
+        losses.extend(block.tolist())
         done += k
         if log_every:
             print(f"  step {done}/{steps}: loss {losses[-1]:.6g}")

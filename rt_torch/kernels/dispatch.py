@@ -112,28 +112,33 @@ def check_device(tab: torch.Tensor, device) -> None:
 
 
 def render_color_frames(scene, camera, config: RenderConfig, times,
-                        device="cuda"):
+                        device="cuda", row0: int = 0,
+                        rows: int | None = None):
     """(F, H, W, 3) colors for F frames of a triangle scene in one
     wavefront stream.  scene: a TriangleScene or its PackedScene.
-    times: F u32 time uniforms (ints)."""
+    times: F u32 time uniforms (ints).  With ``row0``/``rows``: (F, rows,
+    W, 3), the band of the frame's rows row0.. in a stream of its own (the
+    band padded to the tile and cropped), bit for bit those rows of the
+    frame."""
     if isinstance(scene, TriangleScene):
         scene = pack_scene(scene)
     elif not isinstance(scene, tris_kernel.PackedScene):
         raise TypeError(f"unknown scene type {type(scene)}")
     check_device(scene.tab, device)
     h, w = config.height, config.width
+    rows = h - row0 if rows is None else rows
     kw = wave_params(scene, config)
-    hp, wp = _round_up(h, kw["th"]), _round_up(w, kw["tw"])
+    hp, wp = _round_up(rows, kw["th"]), _round_up(w, kw["tw"])
 
     t = np.atleast_1d(np.asarray(times, np.int64)) & 0xFFFFFFFF
     time_arr = torch.from_numpy(t.astype(np.uint32).view(np.int32)).to(
         scene.tab.device)
     colors = tris_kernel.render_color_tris_wave(
         scene, pack_camera(camera), time_arr, height=h, width=w,
-        height_pad=hp, width_pad=wp, **kw)              # (F, 3, Hp, Wp)
+        height_pad=hp, width_pad=wp, row0=row0, **kw)   # (F, 3, Hp, Wp)
     colors = colors.permute(0, 2, 3, 1)                 # (F, Hp, Wp, 3)
-    if (hp, wp) != (h, w):
-        colors = colors[:, :h, :w]
+    if (hp, wp) != (rows, w):
+        colors = colors[:, :rows, :w]
     return colors
 
 

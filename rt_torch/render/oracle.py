@@ -37,14 +37,16 @@ def scene_functions(scene, bvh: bool = True):
     raise TypeError(f"unknown scene type {type(scene)}")
 
 
-def render_color(scene, camera, config: RenderConfig, time, device="cuda"):
+def render_color(scene, camera, config: RenderConfig, time, device="cuda",
+                 row0: int = 0, rows: int | None = None):
     """(H, W, 3) color of one frame: ``config.samples_per_frame`` samples
     of the same primary rays with the RNG state carried across them, summed
-    and divided by their count."""
+    and divided by their count.  With ``row0``/``rows``: (rows, W, 3), the
+    frame's rows row0.. bit for bit (every ray is traced on its own)."""
     dispatch.check_device(scene[0], device)
     state, origin, direction = camera_mod.generate_primary_rays(
         camera, config.width, config.height, time,
-        config.normalize_defocus_dir, device=device)
+        config.normalize_defocus_dir, device=device, row0=row0, rows=rows)
     intersect, hit_rec = scene_functions(scene)
     color = torch.zeros_like(origin)
     with torch.no_grad():

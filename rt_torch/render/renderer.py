@@ -34,23 +34,37 @@ def init_state(config: RenderConfig, device="cuda") -> RenderState:
         frame_count=0)
 
 
-def render_frame(scene, camera, state: RenderState, time,
-                 config: RenderConfig, device="cuda") -> RenderState:
-    """draw(): trace every pixel and EMA-accumulate.  scene: the scene
-    itself for the oracle, the scene or what ``dispatch.pack_scene`` made of
-    it for the kernels."""
+def render_color(scene, camera, config: RenderConfig, time,
+                 device="cuda") -> torch.Tensor:
+    """(H, W, 3) color of one frame through ``config.backend``.  scene: the
+    scene itself for the oracle, the scene or what ``dispatch.pack_scene``
+    made of it for the kernels."""
     if config.backend == "oracle":
-        color = oracle.render_color(scene, camera, config, time, device)
-    elif config.backend == "kernels":
-        color = dispatch.render_color(scene, camera, config, time, device)
-    else:
-        raise ValueError(f"backend {config.backend!r}: kernels or oracle")
+        return oracle.render_color(scene, camera, config, time, device)
+    if config.backend == "kernels":
+        return dispatch.render_color(scene, camera, config, time, device)
+    raise ValueError(f"backend {config.backend!r}: kernels or oracle")
+
+
+def accumulate(state: RenderState, color: torch.Tensor,
+               config: RenderConfig) -> RenderState:
+    """Fold one frame's color (the accumulator's shape: the frame or a row
+    band of it) into the state with the reference's EMA."""
     fc = min(state.frame_count, config.sample_frame)
     # weights in float32 on the host, as the f32 scalars the mix multiplies by
     w = np.float32(1.0) / (np.float32(fc) + np.float32(1.0))
     image = state.image * float(np.float32(1.0) - w) + color * float(w)
     return RenderState(image=image,
                        frame_count=(state.frame_count + 1) & 0xFFFFFFFF)
+
+
+def render_frame(scene, camera, state: RenderState, time,
+                 config: RenderConfig, device="cuda") -> RenderState:
+    """draw(): trace every pixel and EMA-accumulate.  scene: the scene
+    itself for the oracle, the scene or what ``dispatch.pack_scene`` made of
+    it for the kernels."""
+    return accumulate(state, render_color(scene, camera, config, time,
+                                          device), config)
 
 
 def render_frames(scene, camera, state: RenderState, time0, time_step,
