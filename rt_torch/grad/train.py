@@ -25,6 +25,7 @@ from rt_torch.grad.replay import (_gather_tri_rows, _tris_replay_tables,
                                   record_hits, record_hits_oracle,
                                   replay_color)
 from rt_torch.kernels.tris_kernel import material_table, pack_tri_table
+from rt_torch.utils.profiling import span, wait
 
 
 def _tri_scene_params(base_scene, scene_fields) -> TriangleParams:
@@ -253,7 +254,7 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
     done = 0
     while done < steps:
         k = min(rerecord_every, steps - done)
-        with torch.no_grad():
+        with span("fit.record"), torch.no_grad():
             scene = _apply_scene(base_scene, params)
             kw = ({} if packed is None else
                   dict(packed=packed._replace(mats=material_table(scene))))
@@ -266,17 +267,23 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
                         else _gather_tri_rows(pre_tab, hits))
         block = []
         for _ in range(k):
-            optimizer.zero_grad(set_to_none=True)
-            loss = loss_of(params, hits, pre_rows)
-            loss.backward()
+            with span("fit.forward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss = loss_of(params, hits, pre_rows)
+            with span("fit.backward"):
+                loss.backward()
             if mesh is not None:
                 _all_reduce_grads(mesh, leaves)
-            optimizer.step()
+            with span("fit.optimizer"):
+                optimizer.step()
             block.append(loss.detach())
         block = torch.stack(block)
         if mesh is not None:
             all_reduce(mesh, block)
-        losses.extend(block.tolist())
+        with span("fit.wait"):
+            wait(block)
+        with span("fit.readback"):
+            losses.extend(block.tolist())
         done += k
         if log_every:
             print(f"  step {done}/{steps}: loss {losses[-1]:.6g}")

@@ -19,6 +19,7 @@ from rt_torch.kernels import sphere_kernel, tris_kernel
 from rt_torch.kernels.tracer_common import (CAM_BLUR, CAM_DIR, CAM_EYE,
                                             CAM_FL, CAM_FOV, CAM_RIGHT,
                                             CAM_TAN, CAM_UP, CAM_WIDTH)
+from rt_torch.utils.profiling import span
 
 # Rays per tile on the card: one CUDA block per tile.
 DEFAULT_TILE = (8, 16)
@@ -172,14 +173,15 @@ def render_color_spheres(scene, camera, config: RenderConfig, time,
               sky_from_final_dir=config.sky_from_final_dir,
               spp=config.samples_per_frame, **frame_geometry(config))
     cam_row = pack_camera(camera)
-    if scene.chunks is None:
-        color = sphere_kernel.render_color_spheres(
-            scene.tab, scene.kinds, cam_row, int(time), n_spheres=scene.n,
-            **kw)
-    else:
-        color = sphere_kernel.render_color_spheres_chunked(
-            scene, cam_row, int(time), **kw)
-    return _crop(color, config)
+    with span("spheres.frame"):
+        if scene.chunks is None:
+            color = sphere_kernel.render_color_spheres(
+                scene.tab, scene.kinds, cam_row, int(time),
+                n_spheres=scene.n, **kw)
+        else:
+            color = sphere_kernel.render_color_spheres_chunked(
+                scene, cam_row, int(time), **kw)
+        return _crop(color, config)
 
 
 def render_color_tris_mono(scene, camera, config: RenderConfig, time,

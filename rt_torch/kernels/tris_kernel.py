@@ -60,6 +60,7 @@ from rt_torch.config import EPSILON_TRIS, FLT_MAX
 from rt_torch.core import rng
 from rt_torch.core import vecmath as vm
 from rt_torch.kernels import tracer_common as tc
+from rt_torch.utils.profiling import count, span
 
 CHUNK = 32        # triangles per chunk
 GROUP = 32        # chunks per group box (csrc/tris_trace.cuh GROUP)
@@ -1105,16 +1106,21 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
                 # lean payload: `active` is rebuilt from the sorted key and
                 # the primary dy never rides (the sky is applied in pixel
                 # order)
-                key, perm = torch.sort(
-                    stream_key(pay, active, wch, key_mode, bounds),
-                    stable=True)
-                pay = pay[:, perm]
-                state = state[perm]
-                pix = perm if pix is None else pix[perm]
-                active = (key != DEAD_KEY).to(torch.int32)
-            wch = wave_bounce(packed, tile_chunk_order(packed, pay, tile),
-                              pay, state, active, flags, n_bounces=nb,
-                              th=th, tw=tw)
+                with span("wave.sort"):
+                    key, perm = torch.sort(
+                        stream_key(pay, active, wch, key_mode, bounds),
+                        stable=True)
+                    count("sort_keys", n)
+                with span("wave.gather"):
+                    pay = pay[:, perm]
+                    state = state[perm]
+                    pix = perm if pix is None else pix[perm]
+                    active = (key != DEAD_KEY).to(torch.int32)
+            with span("wave.chunk_order"):
+                order = tile_chunk_order(packed, pay, tile)
+            with span("wave.bounce"):
+                wch = wave_bounce(packed, order, pay, state, active, flags,
+                                  n_bounces=nb, th=th, tw=tw)
         return pay, state, pix
 
     def sample_color(pay, pix, pdy):
@@ -1124,26 +1130,30 @@ def render_color_tris_wave(packed: PackedScene, cam_row, times, *,
             dy, (atten[0], atten[1], atten[2])))
 
     if spp == 1:
-        payf, state, active, wch = wave_first(
-            packed, eye_chunk_order(packed, cam_row), cam_row, times, row0,
-            flags, height=height, width=width, height_pad=height_pad,
-            width_pad=width_pad, th=th, tw=tw,
-            normalize_defocus_dir=normalize_defocus_dir)
+        with span("wave.first"):
+            payf, state, active, wch = wave_first(
+                packed, eye_chunk_order(packed, cam_row), cam_row, times,
+                row0, flags, height=height, width=width,
+                height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
+                normalize_defocus_dir=normalize_defocus_dir)
         pay, _, pix = stream_bounces(payf[0:9], state, active, wch, 1)
-        col = sample_color(pay, pix, payf[9])
+        with span("wave.restore"):
+            col = sample_color(pay, pix, payf[9])
     else:
-        od, pdy, state_px = wave_raygen(
-            cam_row, times, row0, height=height, width=width,
-            height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
-            normalize_defocus_dir=normalize_defocus_dir)
+        with span("wave.raygen"):
+            od, pdy, state_px = wave_raygen(
+                cam_row, times, row0, height=height, width=width,
+                height_pad=height_pad, width_pad=width_pad, th=th, tw=tw,
+                normalize_defocus_dir=normalize_defocus_dir)
         acc = torch.zeros((3, n), dtype=torch.float32, device=dev)
         for _ in range(spp):
             pay = torch.cat([od, torch.ones_like(od[0:3])])
             active = torch.ones((n,), dtype=torch.int32, device=dev)
             pay, state, pix = stream_bounces(pay, state_px, active, None, 0)
-            # the RNG state goes back to pixel order with atten
-            state_px = to_pixels(state, pix)
-            acc = acc + sample_color(pay, pix, pdy)
+            with span("wave.restore"):
+                # the RNG state goes back to pixel order with atten
+                state_px = to_pixels(state, pix)
+                acc = acc + sample_color(pay, pix, pdy)
         # a tensor divisor: CUDA division by a Python scalar multiplies by
         # its reciprocal, which is not the IEEE quotient
         col = acc / torch.tensor(float(spp), dtype=torch.float32, device=dev)
@@ -1189,11 +1199,13 @@ def render_color_tris_wave_record(packed: PackedScene, cam_row, time: int, *,
     for _ in range(1, bounces):
         key, perm = torch.sort(ray_sort_key(pay, active, *bounds),
                                stable=True)
+        count("sort_keys", key.numel())
         active = (key != DEAD_KEY).to(torch.int32)
         live = active.sum()         # read on the host after the gathers
         pay = pay[:, perm]
         state = state[perm]
         pix = perm if pix is None else pix[perm]
+        count("host_waits")         # int(live) waits for the device
         live_tiles = -(-int(live) // tile)
         _, idx = wave_bounce(
             packed, tile_chunk_order(packed, pay[:, :live_tiles * tile],

@@ -20,6 +20,7 @@ import torch
 from rt_torch.config import RenderConfig
 from rt_torch.kernels import dispatch
 from rt_torch.render import oracle
+from rt_torch.utils.profiling import count, span, wait
 
 
 class RenderState(NamedTuple):
@@ -53,7 +54,8 @@ def accumulate(state: RenderState, color: torch.Tensor,
     fc = min(state.frame_count, config.sample_frame)
     # weights in float32 on the host, as the f32 scalars the mix multiplies by
     w = np.float32(1.0) / (np.float32(fc) + np.float32(1.0))
-    image = state.image * float(np.float32(1.0) - w) + color * float(w)
+    with span("render.accumulate"):
+        image = state.image * float(np.float32(1.0) - w) + color * float(w)
     return RenderState(image=image,
                        frame_count=(state.frame_count + 1) & 0xFFFFFFFF)
 
@@ -63,8 +65,9 @@ def render_frame(scene, camera, state: RenderState, time,
     """draw(): trace every pixel and EMA-accumulate.  scene: the scene
     itself for the oracle, the scene or what ``dispatch.pack_scene`` made of
     it for the kernels."""
-    return accumulate(state, render_color(scene, camera, config, time,
-                                          device), config)
+    with span("render.frame"):
+        return accumulate(state, render_color(scene, camera, config, time,
+                                              device), config)
 
 
 def render_frames(scene, camera, state: RenderState, time0, time_step,
@@ -123,7 +126,16 @@ class ProgressiveRenderer:
 
     @property
     def image(self) -> np.ndarray:
-        return self.state.image.cpu().numpy()
+        """The accumulator read back to the host: a wait for the work that
+        feeds it (``render.wait``), then the copy alone
+        (``render.readback``)."""
+        img = self.state.image
+        with span("render.wait"):
+            wait(img)
+        with span("render.readback"):
+            out = img.cpu().numpy()
+        count("readback_bytes", out.nbytes)
+        return out
 
     @property
     def frame_count(self) -> int:

@@ -1,5 +1,4 @@
 from rt_torch.utils.profiling import (RenderStats, Timer, device_sync,
-                                      profile_trace, setup_logging)
+                                      profile_trace)
 
-__all__ = ["RenderStats", "Timer", "device_sync", "profile_trace",
-           "setup_logging"]
+__all__ = ["RenderStats", "Timer", "device_sync", "profile_trace"]

@@ -1,4 +1,5 @@
-"""Profiling, stats and logging — counterpart of ``rt/utils/profiling.py``.
+"""Profiling, stats, spans and counters — counterpart of
+``rt/utils/profiling.py``.
 
 - ``Timer`` / ``device_sync``: wall-clock timing that waits for the card's
   work (``torch.cuda.synchronize`` on the device of each CUDA tensor given);
@@ -6,27 +7,102 @@
   update a frame batch (the CLI's ``--stats`` line);
 - ``profile_trace``: a ``torch.profiler`` context that writes a Chrome
   trace (Perfetto-viewable) into ``logdir``;
-- ``setup_logging``: the standard library's logging, configured once.
+- ``span`` / ``enable`` / ``disable`` / ``take``: the program's own host
+  spans, off by default.  An enabled span records ``(name, start_ns,
+  end_ns)`` on the clock of ``time.time_ns()``, the wall clock that
+  ``torch.profiler``'s trace start is stamped on, so a reader can lay the
+  spans over the device's timeline.  A span reads the host's clock only
+  and never waits for the device;
+- ``count`` / ``counters``: plain integer counters, always on, read with
+  the kernels' launch counts (``dispatch.launch_counts``) by
+  ``counters()``;
+- ``wait``: the program's explicit waits on the device, counted.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
 
-log = logging.getLogger("rt_torch")
+# the program's counters besides the kernels' launches: elements sorted by
+# the stream sorts, bytes read back to the host, explicit waits on the
+# device
+COUNTS = {"sort_keys": 0, "readback_bytes": 0, "host_waits": 0}
+
+_enabled = False
+_records: list = []
 
 
-def setup_logging(level=logging.INFO) -> None:
-    logging.basicConfig(
-        level=level,
-        format="%(asctime)s %(name)s %(levelname).1s %(message)s",
-        datefmt="%H:%M:%S")
+class _NoSpan:
+    """What ``span`` hands out while spans are off: one shared object whose
+    ``with`` does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "start_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _records.append((self.name, self.start_ns, time.time_ns()))
+        return False
+
+
+def span(name: str):
+    """``with span("fit.backward"): ...`` records the block's host time
+    while spans are on; while off it returns one shared no-op object."""
+    return _Span(name) if _enabled else _NO_SPAN
+
+
+def enable() -> None:
+    global _enabled
+    _enabled = True
+
+
+def disable() -> None:
+    global _enabled
+    _enabled = False
+
+
+def take() -> list:
+    """The spans closed since the last ``take()``, as (name, start_ns,
+    end_ns) in the order they closed (an inner span before its outer
+    one); clears them."""
+    out = _records[:]
+    del _records[:len(out)]
+    return out
+
+
+def count(name: str, n: int = 1) -> None:
+    COUNTS[name] += n
+
+
+def counters() -> dict:
+    """The kernels' launches so far by wrapper name, and the program's
+    counters."""
+    from rt_torch.kernels import dispatch
+
+    return dispatch.launch_counts() | COUNTS
 
 
 def device_sync(*tensors) -> None:
@@ -35,6 +111,13 @@ def device_sync(*tensors) -> None:
     for dev in {t.device for t in tensors
                 if isinstance(t, torch.Tensor) and t.is_cuda}:
         torch.cuda.synchronize(dev)
+
+
+def wait(*tensors) -> None:
+    """An explicit wait of the program on the work that feeds ``tensors``
+    (``device_sync``), counted in ``host_waits``."""
+    count("host_waits")
+    device_sync(*tensors)
 
 
 class Timer:
@@ -65,12 +148,10 @@ class RenderStats:
     samples_per_frame: int = 1
     frames: int = 0
     seconds: float = 0.0
-    history: list = field(default_factory=list)
 
     def update(self, n_frames: int, seconds: float) -> None:
         self.frames += n_frames
         self.seconds += seconds
-        self.history.append((n_frames, seconds))
 
     @property
     def pixels(self) -> int:
