@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from rt_torch/kernels/csrc, holds each of
-the thirteen (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
+the fourteen (wave_first, wave_bounce, wave_raygen, spheres, spheres_chunked,
 tris_mono, tris_record, spheres_record, the sorted-stream recorder's
-wave_record and wave_record_bounce, and the probes' lane_gather, mt_scan and
-woop_mma) against its plain PyTorch version on the card at the shapes and in
-the stream states each path gives it, drives the probes (``python -m
-rt_torch.probes lane_gather`` and ``r5_mxu`` at the tools' sizes) and the
+wave_record and wave_record_bounce, the fit's replay_loss, and the probes'
+lane_gather, mt_scan and woop_mma) against its plain PyTorch version on the
+card at the shapes and in the stream states each path gives it, drives the
+probes (``python -m rt_torch.probes lane_gather`` and ``r5_mxu`` at the
+tools' sizes) and the
 port's render paths (``rt_torch.measure.PATHS``) through ``build_scene ->
 ProgressiveRenderer -> draw_frames``, after three phases of the soft pose
 slice:
@@ -98,11 +99,12 @@ import numpy as np  # noqa: E402
 
 from rt_torch import cli, goldens, measure  # noqa: E402
 from rt_torch.measure import (  # noqa: E402
-    FLOPS_PER_PAIR, FLOPS_PER_RAYGEN, FLOPS_PER_SPHERE_HIT,
+    FLOPS_PER_PAIR, FLOPS_PER_RAYGEN, FLOPS_PER_REPLAY_BOUNCE,
+    FLOPS_PER_REPLAY_PIXEL, FLOPS_PER_SPHERE_HIT,
     FLOPS_PER_SPHERE_PAIR, FLOPS_PER_WOOP_PAIR, PEAK_BF16_FLOPS,
     PEAK_BYTES_PER_S, PEAK_F32_FLOPS, bound)
-from rt_torch.kernels import (_build, dispatch, sphere_kernel,  # noqa: E402
-                              tris_kernel)
+from rt_torch.kernels import (_build, dispatch,  # noqa: E402
+                              replay_kernel, sphere_kernel, tris_kernel)
 from rt_torch.scene import scenes  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -570,11 +572,68 @@ def compare_spheres_record(make_scene, width: int, height: int, reps: int):
     return rec
 
 
+def compare_replay_loss(width: int, height: int, reps: int):
+    """The replay kernel on Suzanne's recorded paths at its 5 bounces
+    against its plain version, autograd through ``replay_color`` on the
+    card: the colour bit-equal (``max_abs_err``, ``rays_differ``); the loss
+    within 1e-5 relative and the gradient within 1e-4 of its norm (their
+    sums run in another order, autograd's in float32 over every pixel);
+    two launches give the same bits.  With reps > 0 its time, beside its
+    bound and the plain version's."""
+    import numpy as np
+
+    from rt_torch.grad import record_hits
+
+    sd = scenes.scene_suzanne(width, height, device=DEV)
+    cfg = sd.config
+    _, hits = record_hits(sd.scene, sd.camera, cfg, 1000)
+    hits = hits.contiguous()
+    target = torch.from_numpy(np.random.RandomState(7).uniform(
+        0.0, 1.0, (height, width, 3)).astype(np.float32)).to(DEV)
+    args = (sd.scene, sd.camera, cfg, 1000, hits, target)
+    tables = replay_kernel.pack_replay_tables(sd.scene, sd.camera)
+    run = lambda: replay_kernel.replay_loss_grad(*args, tables=tables)
+    loss, grad, color = replay_kernel.replay_loss_grad(*args,
+                                                       want_color=True)
+    again = run()
+    (p_loss, p_grad, p_color), plain_ms = _plain_timed(
+        lambda: replay_kernel.replay_loss_grad_plain(*args, want_color=True))
+    th, tw = dispatch.DEFAULT_TILE
+    rec = _frame_record(
+        "replay_loss", "replay.cu", "none: the replay is plain jnp "
+        "(rt/grad/replay.py)", sd, width, height, th, tw,
+        (color.reshape(-1, 3).T,), (p_color.reshape(-1, 3).T,), plain_ms,
+        bounces=cfg.bounces,
+        loss_rel_err=float((loss - p_loss).abs() / p_loss.abs()),
+        grad_err_of_norm=float((grad - p_grad).abs().max()
+                               / torch.linalg.vector_norm(p_grad)),
+        launches_bit_equal=bool(torch.equal(again[0], loss)
+                                and torch.equal(again[1], grad)))
+    if not (rec["loss_rel_err"] <= 1e-5 and rec["grad_err_of_norm"] <= 1e-4
+            and rec["launches_bit_equal"]):
+        raise SystemExit(f"replay_loss: {rec}")
+    if reps:
+        rec["ms"] = _timed(lambda i: run(), reps)
+        rec["graph_ms"] = _timed_graph(run, reps)
+        npix = width * height
+        hit_bounces = int((hits >= 0).sum())
+        nbytes = (hits.numel() + target.numel()) * 4
+        rec["bound_ms"], rec["bound_by"], rec["flops"] = bound(
+            [], nbytes, extra_flops=npix * (FLOPS_PER_RAYGEN
+                                            + FLOPS_PER_REPLAY_PIXEL)
+            + hit_bounces * FLOPS_PER_REPLAY_BOUNCE)
+        rec["hit_bounces"] = hit_bounces
+        rec["bytes"] = nbytes
+    return rec
+
+
 def phase_kernels_train():
-    """K7, K9, K8 against their plain versions at the shapes the whole-frame
-    path and the training paths give them (K9: the 1920x1080 frame of the
-    Suzanne fit at the scene's own 5 bounces, and 512x512 at 8); the
-    recorders' color against the render kernels'; limit bit-equal."""
+    """K7, K9, K8 and the replay kernel against their plain versions at the
+    shapes the whole-frame path and the training paths give them (K9 and
+    the replay kernel: the 1920x1080 frame of the Suzanne fit at the
+    scene's own 5 bounces; K9 at 512x512 and 8 too); the recorders' color
+    against the render kernels'; limit bit-equal (the replay kernel's loss:
+    1e-5 relative; its gradient: 1e-4 of its norm)."""
     records = [
         compare_mono(KERNEL_SIZE, 8, 1, reps=10),
         compare_mono(KERNEL_SIZE, 8, 4, reps=0),
@@ -582,9 +641,11 @@ def phase_kernels_train():
         compare_tris_record(KERNEL_SIZE, KERNEL_SIZE, 8, reps=0),
         compare_spheres_record(scenes.scene_sphere_simple, 512, 512, reps=50),
         compare_spheres_record(scenes.scene_sphere_cover, 256, 144, reps=0),
+        compare_replay_loss(1920, 1080, reps=20),
+        compare_replay_loss(256, 256, reps=0),
     ]
     say(phase="kernels", kernels=["tris_mono", "tris_record",
-                                  "spheres_record"],
+                                  "spheres_record", "replay_loss"],
         limit="bit-equal: max_abs_err 0, no pixel and no index entry "
               "differs; recorder color == render color", results=records)
     _require_bit_equal(records)
@@ -1145,7 +1206,9 @@ def phase_train():
         t0 = time.perf_counter()
         r = measure.run_fit(name)
         records = -(-f.steps // f.rerecord_every)
-        want = {f.kernel: records}
+        # a triangle fit of the albedo alone steps on the replay kernel
+        want = {f.kernel: records, "replay_loss": (
+            0 if f.kernel == "spheres_record" else f.steps)}
         if f.kernel == "wave_record":
             # one K10b launch for every bounce after the first
             want["wave_record_bounce"] = records * (r["bounces"] - 1)

@@ -94,11 +94,12 @@ def expected_launches(bounces: int, spp: int, polish_steps: int,
     launch): the spp > 1 target is one raygen and, per sample, the bounce
     kernel's launches from bounce 0; the 1-sample one the fused first
     kernel and the launches from bounce 1; the polish one whole-frame
-    record every ``rerecord_every`` steps."""
+    record every ``rerecord_every`` steps and one replay kernel a step."""
     per = lambda start: len(tris_kernel.bounce_schedule(bounces, 2, True,
                                                         start))
     out = {"wave_raygen": 0, "wave_first": 1, "wave_bounce": per(1),
-           "tris_record": -(-polish_steps // rerecord_every)}
+           "tris_record": -(-polish_steps // rerecord_every),
+           "replay_loss": polish_steps}
     if spp > 1:
         out["wave_raygen"] = 1
         out["wave_bounce"] += spp * per(0)

@@ -14,6 +14,20 @@ def image_mse(rendered: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(d * d)
 
 
+def replay_mse(rendered: torch.Tensor, target: torch.Tensor, weight=None,
+               norm=None) -> torch.Tensor:
+    """``fit_replay``'s loss: ``image_mse`` when neither a per-pixel
+    ``weight`` (H, W) nor a divisor ``norm`` is given, else the (weighted)
+    sum of squares over ``norm`` (a row band's share of the frame's
+    loss)."""
+    if weight is None and norm is None:
+        return image_mse(rendered, target)
+    d = rendered - target
+    if weight is None:
+        return torch.sum(d * d) / norm
+    return torch.sum(d * d * weight[..., None]) / norm
+
+
 def golden_mae_percent(rendered: torch.Tensor,
                        target: torch.Tensor) -> torch.Tensor:
     """The acceptance metric itself: mean absolute difference as a percentage

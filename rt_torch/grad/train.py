@@ -18,13 +18,16 @@ from rt_torch.config import RenderConfig
 from rt_torch.core.sphere import SphereArray
 from rt_torch.dist.sharding import all_reduce
 from rt_torch.grad.diff_render import render_image_diff
-from rt_torch.grad.loss import image_mse
+from rt_torch.grad.loss import image_mse, replay_mse
 from rt_torch.grad.params import (SphereParams, TriangleParams, apply_params,
-                                  apply_tri_params, camera_from_params)
+                                  apply_tri_params, camera_from_params,
+                                  host_camera)
 from rt_torch.grad.replay import (_gather_tri_rows, _tris_replay_tables,
                                   record_hits, record_hits_oracle,
                                   replay_color)
+from rt_torch.kernels import replay_kernel
 from rt_torch.kernels.tris_kernel import material_table, pack_tri_table
+from rt_torch.utils import profiling
 from rt_torch.utils.profiling import span, wait
 
 
@@ -134,6 +137,14 @@ def _as_leaves(params: dict, device) -> dict:
     return {k: type(p)(*(leaf(v) for v in p)) for k, p in params.items()}
 
 
+def _albedo_is_the_only_leaf(scene) -> bool:
+    """Whether a triangle scene's material albedo is the one of its tensors
+    that requires a gradient."""
+    return scene.mat_albedo.requires_grad and not any(
+        t.requires_grad for k, t in scene._asdict().items()
+        if k != "mat_albedo")
+
+
 def _all_reduce_grads(mesh, leaves) -> None:
     """The gradients of ``leaves`` summed over the mesh's ranks in one
     ``all_reduce``; a leaf this rank's band did not reach counts zero."""
@@ -188,6 +199,16 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
     ``optimizer.step()``.  Parameters and the Adam state stay replicated.
     A block's losses are summed across the ranks once, at its end.  The
     losses match the unsharded loop's up to the order of the sums.
+
+    Two paths compute a step's loss and gradients, chosen once a fit by
+    what the parameters hold.  For a triangle scene with
+    ``frozen_geometry``, no "camera" entry and the material albedo as the
+    scene's only leaf, one hand-written kernel computes the loss and the
+    albedo's gradient in one pass over the recorded paths
+    (``kernels.replay_kernel.replay_loss``, its plain version on the CPU).
+    Every other set of leaves runs autograd through ``replay_color``.  The
+    counters ``replay_kernel_steps`` and ``replay_autograd_steps``
+    (``utils.profiling``) count the steps of each.
     """
     is_tris = not isinstance(base_scene, SphereArray)
     params = dict(init_params) if init_params else {}
@@ -227,21 +248,33 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
     count = torch.tensor(float(config.height * config.width * 3),
                          dtype=torch.float32, device=device)
 
+    use_kernel = (is_tris and frozen_geometry and "camera" not in params
+                  and _albedo_is_the_only_leaf(_apply_scene(base_scene,
+                                                            params)))
+    # the loss's divisor: None for the mean, else the frame's count or the
+    # whole weight's sum
+    norm = (None if lw is None and mesh is None
+            else count if lw is None else lw_norm)
+    if use_kernel:
+        tables = replay_kernel.pack_replay_tables(base_scene,
+                                                  host_camera(base_camera))
+        target = target.contiguous()
+        lw = None if lw is None else lw.contiguous()
+
     def loss_of(p, hits, pre_rows):
+        if use_kernel:
+            return replay_kernel.replay_loss(
+                _apply_scene(base_scene, p), base_camera, config, time, hits,
+                target, lw, norm, row0=row0, tables=tables)
         img = replay_color(_apply_scene(base_scene, p),
                            camera_from_params(p.get("camera"), base_camera),
                            config, time, hits,
                            frozen_geometry=frozen_geometry,
                            _pre_rows=pre_rows, row0=row0)
-        if lw is None and mesh is None:
-            return image_mse(img, target)
-        d = img - target
-        if lw is None:
-            return torch.sum(d * d) / count
-        return torch.sum(d * d * lw[..., None]) / lw_norm
+        return replay_mse(img, target, lw, norm)
 
     pre_tab = (_tris_replay_tables(base_scene)[0]
-               if is_tris and frozen_geometry else None)
+               if is_tris and frozen_geometry and not use_kernel else None)
     # the recorder's tables: packed once a fit while the geometry is fixed;
     # each record then swaps in the current material table
     packed = None
@@ -262,7 +295,8 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
                 scene, camera_from_params(params.get("camera"), base_camera),
                 config, time, device=device, **kw)
             if mesh is not None:
-                hits = hits[:, band].contiguous()
+                hits = hits[:, band]
+            hits = hits.contiguous()
             pre_rows = (None if pre_tab is None
                         else _gather_tri_rows(pre_tab, hits))
         block = []
@@ -270,8 +304,13 @@ def fit_replay(base_scene, base_camera, config: RenderConfig, target,
             with span("fit.forward"):
                 optimizer.zero_grad(set_to_none=True)
                 loss = loss_of(params, hits, pre_rows)
-            with span("fit.backward"):
+            # on this thread: a hand-off to autograd's device thread and
+            # back costs more than the kernel path's whole backward
+            with span("fit.backward"), \
+                    torch.autograd.set_multithreading_enabled(False):
                 loss.backward()
+            profiling.count("replay_kernel_steps" if use_kernel
+                            else "replay_autograd_steps")
             if mesh is not None:
                 _all_reduce_grads(mesh, leaves)
             with span("fit.optimizer"):

@@ -55,6 +55,10 @@ _SIGNATURES = {
         "rt_tris_mono": ([_PTR] * 5 + [ctypes.c_uint, _INT] + [_PTR] * 2
                          + [_INT] * 16 + [_PTR]),
     },
+    "replay": {
+        "rt_replay_loss": ([_PTR] * 13 + [ctypes.c_uint] + [_INT] * 10
+                           + [_PTR]),
+    },
     "probes": {
         "rt_lane_gather": [_PTR] * 3 + [_INT] * 3 + [_PTR],
         "rt_mt_scan": [_PTR] * 4 + [_INT] * 2 + [_PTR],

@@ -15,7 +15,7 @@ from rt_torch.config import MAT_DIELECTRIC, MAT_METAL, RenderConfig
 from rt_torch.core.camera import tan_half_fov
 from rt_torch.core.sphere import SphereArray
 from rt_torch.core.triangle import TriangleScene
-from rt_torch.kernels import sphere_kernel, tris_kernel
+from rt_torch.kernels import replay_kernel, sphere_kernel, tris_kernel
 from rt_torch.kernels.tracer_common import (CAM_BLUR, CAM_DIR, CAM_EYE,
                                             CAM_FL, CAM_FOV, CAM_RIGHT,
                                             CAM_TAN, CAM_UP, CAM_WIDTH)
@@ -214,10 +214,12 @@ def render_color(scene, camera, config: RenderConfig, time, device="cuda"):
 
 def launch_counts() -> dict:
     """Kernel launches so far, by wrapper name (every kernel)."""
-    return tris_kernel.LAUNCHES | sphere_kernel.LAUNCHES
+    return (tris_kernel.LAUNCHES | sphere_kernel.LAUNCHES
+            | replay_kernel.LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for table in (tris_kernel.LAUNCHES, sphere_kernel.LAUNCHES):
+    for table in (tris_kernel.LAUNCHES, sphere_kernel.LAUNCHES,
+                  replay_kernel.LAUNCHES):
         for name in table:
             table[name] = 0

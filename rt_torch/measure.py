@@ -164,6 +164,17 @@ FLOPS_PER_SPHERE_HIT = 45
 # divide), 2 two-vector and 2 four-vector normalisations, uv, make_ray,
 # defocus
 FLOPS_PER_RAYGEN = 102
+# a hit bounce of the replay kernel (replay.cu replay_loss_kernel): the
+# known triangle's t and point (cross 9, dot 5, the guards 4, divide 1,
+# o - a 3, cross 9, dot 5, multiply 1, the point 6, the face test 6 = 49),
+# scatter's Lambertian arm (21, the least of the three arms), the
+# attenuation 6 and the gradient's columns carried through it (3 x
+# Suzanne's 5 materials, and the bounce's own 6 = 21)
+FLOPS_PER_REPLAY_BOUNCE = 97
+# a pixel of the replay kernel besides its primary ray: the sky of the
+# colour and of the gradient (2 x 15), the loss 11, the colour's
+# cotangent 6 and its product with Suzanne's 15 columns
+FLOPS_PER_REPLAY_PIXEL = 62
 # the epilogue of the probe's Woop intersection per (ray, triangle)
 # (probes.cu woop_mma_kernel): reciprocal, negate, 3 multiply, 2 add, u + v,
 # 5 compare, select, min

@@ -30,8 +30,10 @@ import torch
 
 # the program's counters besides the kernels' launches: elements sorted by
 # the stream sorts, bytes read back to the host, explicit waits on the
-# device
-COUNTS = {"sort_keys": 0, "readback_bytes": 0, "host_waits": 0}
+# device, and ``fit_replay``'s steps by the path they took (the replay
+# kernel, or autograd through the replay)
+COUNTS = {"sort_keys": 0, "readback_bytes": 0, "host_waits": 0,
+          "replay_kernel_steps": 0, "replay_autograd_steps": 0}
 
 _enabled = False
 _records: list = []

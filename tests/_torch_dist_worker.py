@@ -114,6 +114,28 @@ for recorder in ("oracle", "kernels"):
         _, ref = fit_replay(bad, sd.camera, sd.config, target, **kw)
         out[f"fit_{recorder}/ref"] = np.asarray(ref)
 
+# --- fit_replay(mesh=) on the replay kernel's path: a triangle scene's
+# albedo alone, each rank's band through the plain version -----------------
+from rt_torch.grad import record_hits  # noqa: E402
+from rt_torch.utils import profiling  # noqa: E402
+
+sd = small(scenes.scene_suzanne, 3)
+target, _ = record_hits(sd.scene, sd.camera, sd.config, TIME, device="cpu")
+albedo = sd.scene.mat_albedo.clone()
+albedo[0] = albedo.new_tensor([0.8, 0.1, 0.1])
+bad = sd.scene._replace(mat_albedo=albedo)
+kw = dict(steps=4, rerecord_every=2, learning_rate=5e-2, device="cpu")
+before = profiling.counters()["replay_kernel_steps"]
+params, losses = fit_replay(bad, sd.camera, sd.config, target, mesh=mesh,
+                            **kw)
+out["fit_tris/kernel_steps"] = np.int64(
+    profiling.counters()["replay_kernel_steps"] - before)
+out["fit_tris/losses"] = np.asarray(losses)
+out["fit_tris/albedo"] = params["scene"].mat_albedo.numpy()
+if mine():
+    _, ref = fit_replay(bad, sd.camera, sd.config, target, **kw)
+    out["fit_tris/ref"] = np.asarray(ref)
+
 # --- the wave path: each rank's band on a stream of its own ---------------
 WAVE = {"cube_b3": (scenes.scene_cube, 3, 1, [1000, 1010]),
         "quad_b2": (scenes.scene_quad, 2, 1, [1000, 1010]),

@@ -195,6 +195,22 @@ def test_fit_replay_sharded_matches_unsharded(group, recorder):
                                       ranks[0][f"fit_{recorder}/albedo"])
 
 
+def test_fit_replay_sharded_on_the_replay_kernel_matches_unsharded(group):
+    """Suzanne's albedo alone: every rank steps on the replay kernel's path
+    (its plain version here) with its band over the frame's count, and the
+    losses match the unsharded loop's up to the sums' order."""
+    ranks, _ = group
+    losses = ranks[0]["fit_tris/losses"]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    np.testing.assert_allclose(losses, ref(ranks, "fit_tris/ref"),
+                               rtol=2e-5, atol=1e-8)
+    for r in ranks:
+        assert int(r["fit_tris/kernel_steps"]) == 4
+        np.testing.assert_array_equal(r["fit_tris/losses"], losses)
+        np.testing.assert_array_equal(r["fit_tris/albedo"],
+                                      ranks[0]["fit_tris/albedo"])
+
+
 # ---------------------------------------------------------------------------
 # The wave path (tests/test_dist_wave.py)
 # ---------------------------------------------------------------------------

@@ -1044,3 +1044,139 @@ def test_cuda_sphere_geometry_recovery():
         mse = lambda p: float(image_mse(render_color_diff(
             apply_params(sd.scene, p), sd.camera, sd.config, TIME), exact))
         assert mse(rec) < 0.05 * mse(init)
+
+
+def _replay_case(width, height, row0=0, rows=None):
+    """(scene, camera, config, the band's hits, a random target of the
+    band) of Suzanne at its 5 bounces, recorded by K9 on the card."""
+    import numpy as np
+
+    from rt_torch.grad import record_hits
+
+    sd = tscenes.scene_suzanne(width, height, device="cuda")
+    _, hits = record_hits(sd.scene, sd.camera, sd.config, TIME)
+    rows = height - row0 if rows is None else rows
+    hits = hits[:, row0:row0 + rows].contiguous()
+    target = torch.from_numpy(np.random.RandomState(7).uniform(
+        0.0, 1.0, (rows, width, 3)).astype(np.float32)).cuda()
+    return sd.scene, sd.camera, sd.config, hits, target
+
+
+REPLAY_SHAPES = {"suzanne_256": (256, 256, 0, None),
+                 "band_1080p": (1920, 1080, 512, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(REPLAY_SHAPES))
+def test_cuda_replay_kernel_colour_equals_replay_color_bitwise(shape):
+    """The replay kernel's colour plane against ``replay_color``'s on the
+    same hits, bit for bit: at Suzanne 256x256 and at a band of a 1080p
+    frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.grad import replay_color
+    from rt_torch.kernels import replay_kernel as rk
+
+    width, height, row0, rows = REPLAY_SHAPES[shape]
+    scene, camera, config, hits, target = _replay_case(width, height, row0,
+                                                       rows)
+    with torch.no_grad():
+        img = replay_color(scene, camera, config, TIME, hits, row0=row0)
+    before = rk.LAUNCHES["replay_loss"]
+    _, _, color = rk.replay_loss_grad(scene, camera, config, TIME, hits,
+                                      target, row0=row0, want_color=True)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["replay_loss"] == before + 1
+    assert _bit_equal(color, img)
+
+
+def _many_materials(scene, n, seed=5):
+    """The scene's faces spread over ``n`` materials drawn from its own."""
+    gen = torch.Generator().manual_seed(seed)
+    pick = lambda t: t[torch.randint(0, t.shape[0], (n,),
+                                     generator=gen).to(t.device)]
+    mat_id = torch.randint(0, n, scene.mat_id.shape, generator=gen)
+    return scene._replace(mat_id=mat_id.to(scene.mat_id),
+                          mat_albedo=pick(scene.mat_albedo),
+                          mat_param=pick(scene.mat_param),
+                          mat_kind=pick(scene.mat_kind))
+
+
+REPLAY_GRAD_CASES = ["band", "weighted", "zero_albedo", "40_materials"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", REPLAY_GRAD_CASES)
+def test_cuda_replay_kernel_loss_and_gradient_equal_autograd(case):
+    """Loss and albedo gradient within 1e-5 relative of autograd through
+    ``replay_color`` and the loss on the card (a band of 64 rows of a
+    256x256 frame over the frame's count, or with a per-pixel weight over
+    the whole weight's sum; a zero albedo; Suzanne's faces over 40
+    materials, three chunks of the kernel's columns); two launches give
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from rt_torch.grad import record_hits
+    from rt_torch.kernels import replay_kernel as rk
+
+    scene, camera, config, hits, target = _replay_case(256, 256, 96, 64)
+    band = slice(96, 160)
+    if case == "weighted":
+        full = torch.from_numpy(np.random.RandomState(3).uniform(
+            0.0, 2.0, (256, 256)).astype(np.float32)).cuda()
+        norm, weight = torch.sum(full) * 3.0 + 1e-9, full[band].contiguous()
+    else:
+        norm = torch.tensor(256.0 * 256 * 3, device="cuda")
+        weight = None
+    if case == "zero_albedo":
+        albedo = scene.mat_albedo.clone()
+        albedo[0] = 0.0
+        albedo[4, 1] = 0.0
+        scene = scene._replace(mat_albedo=albedo)
+    elif case == "40_materials":
+        scene = _many_materials(scene, 40)
+        _, hits = record_hits(scene, camera, config, TIME)
+        hits = hits[:, band].contiguous()
+    args = (scene, camera, config, TIME, hits, target, weight, norm)
+    loss, grad = rk.replay_loss_grad_plain(*args, row0=96)
+    k_loss, k_grad = rk.replay_loss_grad(*args, row0=96)
+    again = rk.replay_loss_grad(*args, row0=96)
+    torch.testing.assert_close(k_loss, loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(k_grad, grad, rtol=1e-5, atol=0)
+    assert torch.isfinite(k_grad).all()
+    if case == "zero_albedo":
+        assert float(k_grad[0].abs().min()) > 0.0
+    assert _bit_equal(again[0], k_loss) and _bit_equal(again[1], k_grad)
+
+
+@pytest.mark.gpu
+def test_cuda_fit_replay_on_the_kernel_equals_the_autograd_path(monkeypatch):
+    """A 12-step fit with one re-record at Suzanne 256x256, 5 bounces: the
+    replay kernel launches once a step and its losses are within 1e-5 of
+    the autograd path's (forced by denying the choice)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.grad import record_hits, train
+    from rt_torch.kernels import replay_kernel as rk
+    from rt_torch.utils import profiling
+
+    sd = tscenes.scene_suzanne(256, 256, device="cuda")
+    target, _ = record_hits(sd.scene, sd.camera, sd.config, TIME)
+    albedo = sd.scene.mat_albedo.clone()
+    albedo[0] = albedo.new_tensor([0.8, 0.1, 0.1])
+    bad = sd.scene._replace(mat_albedo=albedo)
+    kw = dict(time=TIME, steps=12, rerecord_every=6, learning_rate=5e-2)
+    before = dict(profiling.counters())
+    _, losses = train.fit_replay(bad, sd.camera, sd.config, target, **kw)
+    after = profiling.counters()
+    assert after["replay_loss"] - before["replay_loss"] == 12
+    assert after["replay_kernel_steps"] - before["replay_kernel_steps"] == 12
+    assert after["replay_autograd_steps"] == before["replay_autograd_steps"]
+    monkeypatch.setattr(train, "_albedo_is_the_only_leaf", lambda s: False)
+    _, ref = train.fit_replay(bad, sd.camera, sd.config, target, **kw)
+    assert rk.LAUNCHES["replay_loss"] == after["replay_loss"]
+    assert losses[-1] < 0.5 * losses[0]
+    torch.testing.assert_close(torch.tensor(losses), torch.tensor(ref),
+                               rtol=1e-5, atol=0)

@@ -341,4 +341,4 @@ def test_recorders_fail_loudly_without_a_card_and_past_their_limits():
     assert set(tdispatch.launch_counts()) == {
         "wave_first", "wave_bounce", "wave_raygen", "spheres",
         "spheres_chunked", "tris_mono", "tris_record", "spheres_record",
-        "wave_record", "wave_record_bounce"}
+        "wave_record", "wave_record_bounce", "replay_loss"}

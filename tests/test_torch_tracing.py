@@ -77,7 +77,8 @@ def test_spans_nest_on_the_wall_clock_and_take_clears():
 def test_counters_read_the_launches_with_the_programs_counters():
     c = profiling.counters()
     assert c.keys() == (dispatch.launch_counts().keys()
-                        | {"sort_keys", "readback_bytes", "host_waits"})
+                        | {"sort_keys", "readback_bytes", "host_waits",
+                           "replay_kernel_steps", "replay_autograd_steps"})
     profiling.count("sort_keys", 7)
     assert profiling.counters()["sort_keys"] == c["sort_keys"] + 7
 

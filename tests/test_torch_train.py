@@ -38,6 +38,8 @@ from rt_torch.grad import (TriangleParams, fit_replay, image_mse,
                            golden_mae_percent, record_hits, replay_color,
                            replay_loss_fn)
 from rt_torch.grad.train import _tri_scene_params
+from rt_torch.kernels import replay_kernel as rk
+from rt_torch.utils import profiling
 import test_torch_parity_util as U
 
 W, H, TILE = 64, 32, (16, 128)
@@ -51,6 +53,9 @@ FLIP_LIMIT = 0.005
 DIELECTRIC_FLIP_LIMIT = 0.02
 GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-4
+# outputs of the jitted JAX fits, kept in tests/jax_refs (the suite does not
+# compile a whole fit of the JAX package)
+REFS = U.JaxRefs(__file__)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,6 +230,27 @@ def test_suzanne_material_gradients_equal_jax_grad(frozen_geometry):
                        grads_of(tloss(tp), tp))
 
 
+def test_suzanne_albedo_on_the_replay_kernel_path_equals_jax_grad():
+    """``fit_replay``'s path for an albedo alone on triangles
+    (``replay_kernel.replay_loss_grad``, its plain version here) against
+    the eager jax.grad of the JAX replay loss on the same hits."""
+    jscene, jcam, jcfg, tscene, tcam, tcfg, hits = setup("scene_suzanne")
+    target = random_target()
+    jloss = jreplay.replay_loss_fn(jscene, jcam, jcfg, jnp.asarray(target),
+                                   jnp.asarray(hits), TIME,
+                                   gather_mode="take")
+    jp = JTriangleParams.from_scene(jscene, albedo=True)
+    want = eager_grad(lambda p: jloss(p), jp)
+    with jax.disable_jit():
+        jvalue = float(jloss(jp))
+    loss, grad = rk.replay_loss_grad(tscene, tcam, tcfg, TIME,
+                                     torch.from_numpy(hits.copy()),
+                                     torch.from_numpy(target))
+    assert abs(float(loss) - jvalue) <= LOSS_RTOL * jvalue
+    assert_grads_agree({"mat_albedo": want.mat_albedo},
+                       {"mat_albedo": grad})
+
+
 def test_frozen_geometry_does_not_change_material_gradients():
     *_, tscene, tcam, tcfg, hits = setup("scene_suzanne")
     target = random_target()
@@ -329,6 +355,44 @@ def test_fit_replay_on_suzanne_recovers_a_material():
     before = (albedo[0] - tscene.mat_albedo[0]).abs().max()
     after = (params["scene"].mat_albedo[0] - tscene.mat_albedo[0]).abs().max()
     assert float(after) < 0.5 * float(before)
+
+
+def test_fit_replay_suzanne_albedo_loss_curve_equals_jax():
+    """Ten steps with one re-record from a wrong material 0, Suzanne's
+    albedo alone: the port on the replay kernel's path (its plain version
+    here) against the JAX package's jitted fit, which records with its
+    oracle (its hits at the start are the port recorder's, compared
+    first).  The JAX side's losses and albedo are kept in
+    tests/jax_refs."""
+    jscene, jcam, jcfg, tscene, tcam, tcfg, hits = setup("scene_suzanne")
+    target, _ = record_hits(tscene, tcam, tcfg, TIME, device="cpu")
+    wrong = np.asarray(jscene.mat_albedo).copy()
+    wrong[0] = (0.8, 0.1, 0.1)
+    kw = dict(time=TIME, steps=10, rerecord_every=5, learning_rate=5e-2)
+
+    def jax_fit():
+        _, jhits = jreplay.record_hits_oracle(jscene, jcam, jcfg,
+                                              jnp.uint32(TIME))
+        assert np.array_equal(np.asarray(jhits), hits)
+        jparams, jlosses = jfit_replay(
+            jscene, jcam, jcfg, jnp.asarray(target.numpy()),
+            init_params={"scene": JTriangleParams(
+                mat_albedo=jnp.asarray(wrong))},
+            recorder="oracle", gather_mode="take", **kw)
+        return dict(losses=np.asarray(jlosses, np.float64),
+                    albedo=np.asarray(jparams["scene"].mat_albedo))
+
+    ref = REFS("fit_replay_suzanne_albedo", jax_fit)
+    start = convert.triangle_params_from_numpy(dict(mat_albedo=wrong), "cpu")
+    before = profiling.counters()["replay_kernel_steps"]
+    params, losses = fit_replay(tscene, tcam, tcfg, target,
+                                init_params={"scene": start}, device="cpu",
+                                **kw)
+    assert profiling.counters()["replay_kernel_steps"] - before == 10
+    assert len(losses) == 10 and losses[-1] < 0.5 * losses[0]
+    np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL, atol=0)
+    np.testing.assert_allclose(params["scene"].mat_albedo.numpy(),
+                               ref["albedo"], rtol=0, atol=1e-3)
 
 
 def test_fit_replay_loss_weight_of_ones_is_no_weight():
