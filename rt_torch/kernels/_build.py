@@ -38,9 +38,9 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "tris_wave": {
         "rt_wave_first": ([_PTR] * 7 + [_INT] + [_PTR] * 5 + [_INT] * 15
-                          + [_PTR]),
+                          + [_PTR] * 2),
         "rt_wave_bounce": ([_PTR] * 10 + [ctypes.c_longlong] + [_INT] * 10
-                           + [_PTR]),
+                           + [_PTR] * 2),
         "rt_wave_raygen": ([_PTR] * 2 + [_INT] + [_PTR] * 3 + [_INT] * 6
                            + [_PTR]),
         "rt_empty": [_INT, _INT, _PTR],

@@ -78,6 +78,12 @@
 //    groups; at 2-8 lanes (4-16 entries a lane) the lane checks each
 //    entry's group bit.  On an H100 each form was the faster at its lanes
 //    (PERF.md).
+// 7. Counting (trace_bounce<..., COUNT = true>, the render wave kernels'
+//    counting instances): each lane sums its share of the bounce's box
+//    tests and, once a ray, the ray and its chunk scans, as the plain
+//    version's scan_counts entries 0 and 1 define them; a warp adds its
+//    sums to the launch's accumulator with one atomic each.  The other
+//    instances compile as before.
 //
 // The whole-frame kernels trace pixel tiles for the whole frame, so their
 // dead rays stay where they are: from bounce 2 on most of their warps are
@@ -270,6 +276,22 @@ __device__ __forceinline__ void stage_members(const int* __restrict__ order,
     }
 }
 
+// A warp's sums of a bounce's scan work added to a counting launch's
+// accumulator (slots: live rays, ray-chunk scans, box tests).  Every lane
+// of the warp calls it.
+__device__ __forceinline__ void add_scan_counts(unsigned long long* counts,
+                                                unsigned rays, unsigned scans,
+                                                unsigned boxes) {
+    rays = __reduce_add_sync(0xffffffffu, rays);
+    scans = __reduce_add_sync(0xffffffffu, scans);
+    boxes = __reduce_add_sync(0xffffffffu, boxes);
+    if ((threadIdx.x & 31) == 0) {
+        atomicAdd(counts + 0, (unsigned long long)rays);
+        atomicAdd(counts + 1, (unsigned long long)scans);
+        atomicAdd(counts + 2, (unsigned long long)boxes);
+    }
+}
+
 // ---- the wavefront kernels' bounce -----------------------------------------
 // The wave kernels keep a loop of their own: on the cull_scan template
 // below they ran 0-4 % slower on an H100 (PERF.md), so only the whole-frame
@@ -310,9 +332,14 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ tab,
 // least t below the best t before the chunk.  LANES warps share a tile's
 // pairs where one ran them: a tile with much work (dragon, after a bounce)
 // runs its dependent chains in 1/LANES of the time.
-template <bool TRACK_IDX, int LANES = 1, bool GROUPS = false>
+//
+// COUNT (point 7): the bounce's live rays, chunk scans and box tests are
+// added to counts[0..2]; counts is unused without it.
+template <bool TRACK_IDX, int LANES = 1, bool GROUPS = false,
+          bool COUNT = false>
 __device__ int trace_bounce(const Tables& p, const Groups& groups,
-                            const int* __restrict__ order, Ray& r, int& tid) {
+                            const int* __restrict__ order, Ray& r, int& tid,
+                            unsigned long long* counts = nullptr) {
     static_assert(LANES == 1 || LANES == 2 || LANES == 4 || LANES == 8,
                   "1, 2, 4 or 8 lanes a ray");
     constexpr int BOXES = BATCH / LANES;  // box tests a lane a batch
@@ -334,6 +361,8 @@ __device__ int trace_bounce(const Tables& p, const Groups& groups,
     float bmid = 0.0f;
     int wch = -1, wtid = -1;
     int buf = 0;  // staging buffer of the next candidate
+    // COUNT: this lane's box tests; the ray's chunk scans (its first lane)
+    unsigned n_boxes = 0u, n_scans = 0u;
 
     // batch b's boxes, ids, member and mask words are in slot b & 1.  Every
     // read of a slot precedes a barrier that every thread passes before the
@@ -355,8 +384,10 @@ __device__ int trace_bounce(const Tables& p, const Groups& groups,
     unsigned long long entered = 0ull;
     if constexpr (GROUPS) {
         if (alive)
-            for (int g = half; g < n_groups; g += LANES)
+            for (int g = half; g < n_groups; g += LANES) {
+                if (COUNT) ++n_boxes;
                 if (group_entered(gsh->box[g], o, id)) entered |= 1ull << g;
+            }
 #pragma unroll
         for (int step = 1; step < LANES; step *= 2)
             entered |= __shfl_xor_sync(0xffffffffu, entered, step);
@@ -384,6 +415,7 @@ __device__ int trace_bounce(const Tables& p, const Groups& groups,
             unsigned test = alive ? member[MAX_GROUPS] : 0u;
             for (unsigned long long e = entered; e; e &= e - 1ull)
                 test |= member[__ffsll((long long)e) - 1];
+            if (COUNT) n_boxes += __popc(test);
             while (test) {
                 const int j = __ffs(test) - 1;
                 test &= test - 1u;
@@ -401,6 +433,7 @@ __device__ int trace_bounce(const Tables& p, const Groups& groups,
                         if (g < MAX_GROUPS && !((entered >> g) & 1ull))
                             continue;
                     }
+                    if (COUNT && GROUPS) ++n_boxes;
                     float tmin, tmax;
                     slab(box[j], o, id, tmin, tmax);
                     if ((tmin <= tmax) && (tmax >= 0.0f)) mask |= 1u << j;
@@ -435,6 +468,7 @@ __device__ int trace_bounce(const Tables& p, const Groups& groups,
             const unsigned lanes =
                 LANES > 1 ? __ballot_sync(0xffffffffu, scan) : 0u;
             if (!scan) continue;
+            if (COUNT && half == 0) ++n_scans;
 
             const float prev = bt;
             int kbest = CHUNK;
@@ -485,6 +519,13 @@ __device__ int trace_bounce(const Tables& p, const Groups& groups,
         }
     }
 
+    if constexpr (COUNT) {
+        // without group boxes: every chunk box for each ray of the tile,
+        // dead ones too (the plain version's definition; a tile with no
+        // live ray never gets here)
+        if (!GROUPS) n_boxes = half == 0 ? (unsigned)p.n_chunks : 0u;
+        add_scan_counts(counts, alive && half == 0, n_scans, n_boxes);
+    }
     if (TRACK_IDX) tid = wtid;
     const bool hit = alive && (bt != FLT_MAX_WGSL);
     r.active = hit ? 1 : 0;

@@ -12,7 +12,10 @@
 //                       row of the triangle table, -1 on a miss or a dead
 //                       ray, for the path-replay gradients on large meshes.
 //                       The <false, *> instances are the render kernels:
-//                       the flag only adds the index stores.
+//                       the flag only adds the index stores.  Their
+//                       <false, *, *, true> instances count the scan work
+//                       (tris_trace.cuh, point 7); the wrappers launch them
+//                       only while the program's spans are on.
 //   wave_raygen_kernel  replaces rt/kernels/tris_kernel.py:_wave_raygen_kernel
 //                       (primary rays only, for more than one sample per
 //                       pixel: every sample's bounces start from them)
@@ -82,8 +85,9 @@ constexpr int TRACE_LANES = 2;
 // grid (Wp/tw, Hp/th, F), block th*tw.  Outputs are (F*Hp, Wp) planes in
 // image order; payf holds 10 of them: o(3) d(3) atten(3) primary_dy.
 // TRACK_IDX (the recorder, K10a): idx_out gets the winning row of the
-// triangle table, -1 on a miss; unused without it.
-template <bool TRACK_IDX, bool BOUNDED, bool GROUPS>
+// triangle table, -1 on a miss; unused without it.  COUNT: the scan work is
+// added to counts[0..2]; unused without it.
+template <bool TRACK_IDX, bool BOUNDED, bool GROUPS, bool COUNT>
 __global__ void __launch_bounds__(max_threads(BOUNDED, 1))
 wave_first_kernel(
         Tables p, Groups groups, const int* __restrict__ order, CameraRow cam,
@@ -91,7 +95,7 @@ wave_first_kernel(
         int height_pad, int width_pad, int tw, int normalize_defocus_dir,
         float* __restrict__ payf, uint32_t* __restrict__ state_out,
         int* __restrict__ active_out, int* __restrict__ wch_out,
-        int* __restrict__ idx_out) {
+        int* __restrict__ idx_out, unsigned long long* __restrict__ counts) {
     const int ly = threadIdx.x / tw, lx = threadIdx.x % tw;
     const int th = blockDim.x / tw;
     const int row = blockIdx.y * th + ly;
@@ -107,8 +111,8 @@ wave_first_kernel(
     r.atten = {1.0f, 1.0f, 1.0f};
     r.active = 1;
     int tid;
-    const int wch =
-        trace_bounce<TRACK_IDX, 1, GROUPS>(p, groups, order, r, tid);
+    const int wch = trace_bounce<TRACK_IDX, 1, GROUPS, COUNT>(p, groups, order,
+                                                              r, tid, counts);
 
     payf[0 * n + i] = r.o.x;
     payf[1 * n + i] = r.o.y;
@@ -177,14 +181,14 @@ __global__ void empty_kernel() {}
 // K10b): idx_out is (n_bounces, n) and plane b gets bounce b's winning row
 // of the triangle table, -1 on a miss, on a dead ray and in every bounce a
 // tile skipped; unused without it.  L lanes a ray: 1 for tiles above
-// TRACE_BLOCK rays, else 2, 4 or 8.
-template <bool TRACK_IDX, int L, bool GROUPS>
+// TRACE_BLOCK rays, else 2, 4 or 8.  COUNT: as wave_first_kernel's.
+template <bool TRACK_IDX, int L, bool GROUPS, bool COUNT>
 __global__ void __launch_bounds__(max_threads(L > 1, L))
 wave_bounce_kernel(
         Tables p, Groups groups, const int* __restrict__ tile_order, size_t n,
         int n_bounces, float* __restrict__ pay, uint32_t* __restrict__ state,
         int* __restrict__ active, int* __restrict__ wch_out,
-        int* __restrict__ idx_out) {
+        int* __restrict__ idx_out, unsigned long long* __restrict__ counts) {
     const bool lead = threadIdx.x % L == 0;  // stores the group's ray
     const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / L;
     const int* order = tile_order + (size_t)blockIdx.x * p.n_chunks;
@@ -203,7 +207,8 @@ wave_bounce_kernel(
         // and a tile with no live ray stays so for the remaining bounces
         if (!__syncthreads_or(r.active > 0)) break;
         int tid;
-        wch = trace_bounce<TRACK_IDX, L, GROUPS>(p, groups, order, r, tid);
+        wch = trace_bounce<TRACK_IDX, L, GROUPS, COUNT>(p, groups, order, r,
+                                                        tid, counts);
         if (TRACK_IDX && lead) idx_out[b * n + i] = tid;
     }
     if (!lead) return;
@@ -233,33 +238,55 @@ wave_bounce_kernel(
 // launches on ``stream`` and returns cudaGetLastError() as an int
 // (cudaErrorInvalidValue, launching nothing, when ``chunk`` is not CHUNK or
 // an argument is out of range).  ``idx`` non-null launches the recording
-// instance (K10a, K10b), null the render one.  ``groups``: the table's
-// (n_groups, 6) group boxes, or null with n_groups 0.
+// instance (K10a, K10b), null the render one.  ``counts`` non-null (a render
+// launch only) launches the render instance that adds its scan work to the
+// three int64 counters there.  ``groups``: the table's (n_groups, 6) group
+// boxes, or null with n_groups 0.
 
 namespace {
 
-template <bool TRACK_IDX, bool BOUNDED, bool GROUPS>
+template <bool TRACK_IDX, bool BOUNDED, bool GROUPS, bool COUNT>
 void launch_first(dim3 grid, int block, cudaStream_t stream,
                   const rt::Tables& p, const rt::Groups& g, const int* order,
                   const rt::CameraRow& row, const uint32_t* times, int row0,
                   int height, int width, int height_pad, int width_pad,
                   int tw, int normalize_defocus_dir, float* payf,
-                  uint32_t* state, int* active, int* wch, int* idx) {
-    rt::wave_first_kernel<TRACK_IDX, BOUNDED, GROUPS>
+                  uint32_t* state, int* active, int* wch, int* idx,
+                  unsigned long long* counts) {
+    rt::wave_first_kernel<TRACK_IDX, BOUNDED, GROUPS, COUNT>
         <<<grid, block, 0, stream>>>(
             p, g, order, row, times, row0, height, width, height_pad,
             width_pad, tw, normalize_defocus_dir, payf, state, active, wch,
-            idx);
+            idx, counts);
 }
 
-template <bool TRACK_IDX, int L, bool GROUPS>
+using FirstLaunch = decltype(&launch_first<false, true, false, false>);
+
+// The first kernel's instance for a bound and a table: the recorder's, the
+// counting render one or the render one.
+template <bool BOUNDED, bool GROUPS>
+FirstLaunch first_instance(bool record, bool count) {
+    return record  ? launch_first<true, BOUNDED, GROUPS, false>
+           : count ? launch_first<false, BOUNDED, GROUPS, true>
+                   : launch_first<false, BOUNDED, GROUPS, false>;
+}
+
+template <bool TRACK_IDX, int L, bool GROUPS, bool COUNT>
 void launch_bounce(unsigned grid, int tile, cudaStream_t stream,
                    const rt::Tables& p, const rt::Groups& g,
                    const int* tile_order, size_t n, int n_bounces, float* pay,
-                   uint32_t* state, int* active, int* wch, int* idx) {
-    rt::wave_bounce_kernel<TRACK_IDX, L, GROUPS>
+                   uint32_t* state, int* active, int* wch, int* idx,
+                   unsigned long long* counts) {
+    rt::wave_bounce_kernel<TRACK_IDX, L, GROUPS, COUNT>
         <<<grid, tile * L, 0, stream>>>(p, g, tile_order, n, n_bounces, pay,
-                                        state, active, wch, idx);
+                                        state, active, wch, idx, counts);
+}
+
+// The render bounce kernel's instance at L lanes, counting or not.
+template <int L, bool GROUPS>
+decltype(&launch_bounce<false, L, GROUPS, false>) render_bounce(bool count) {
+    return count ? launch_bounce<false, L, GROUPS, true>
+                 : launch_bounce<false, L, GROUPS, false>;
 }
 
 // The blocks of the recorder's bounce kernel at L lanes a ray that the
@@ -288,8 +315,8 @@ cudaError_t resident_blocks(int tile, bool grouped, int* blocks) {
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm,
-        grouped ? rt::wave_bounce_kernel<true, L, true>
-                : rt::wave_bounce_kernel<true, L, false>,
+        grouped ? rt::wave_bounce_kernel<true, L, true, false>
+                : rt::wave_bounce_kernel<true, L, false, false>,
         tile * L, 0);
     if (err != cudaSuccess) return err;
     known.push_back({device, tile, grouped, per_sm * sms});
@@ -307,8 +334,9 @@ extern "C" int rt_wave_first(
         int chunk, int n_mats, int height, int width, int height_pad,
         int width_pad, int n_frames, int th, int tw,
         int normalize_defocus_dir, int normalize_reflect_in, int has_metal,
-        int has_dielectric, void* stream) {
-    if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
+        int has_dielectric, unsigned long long* counts, void* stream) {
+    if (chunk != rt::CHUNK || (idx && counts))
+        return (int)cudaErrorInvalidValue;
     rt::Tables p = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
     const rt::Groups g = {groups, n_groups};
@@ -318,18 +346,15 @@ extern "C" int rt_wave_first(
     const int block = th * tw;
     const bool bounded = block <= rt::TRACE_BLOCK;
     const bool grouped = n_groups > 0;
-    auto launch =
-        idx ? (bounded ? (grouped ? launch_first<true, true, true>
-                                  : launch_first<true, true, false>)
-                       : (grouped ? launch_first<true, false, true>
-                                  : launch_first<true, false, false>))
-            : (bounded ? (grouped ? launch_first<false, true, true>
-                                  : launch_first<false, true, false>)
-                       : (grouped ? launch_first<false, false, true>
-                                  : launch_first<false, false, false>));
+    const bool record = idx != nullptr, count = counts != nullptr;
+    const FirstLaunch launch =
+        bounded ? (grouped ? first_instance<true, true>(record, count)
+                           : first_instance<true, false>(record, count))
+                : (grouped ? first_instance<false, true>(record, count)
+                           : first_instance<false, false>(record, count));
     launch(grid, block, (cudaStream_t)stream, p, g, order, row, times, row0,
            height, width, height_pad, width_pad, tw, normalize_defocus_dir,
-           payf, state, active, wch, idx);
+           payf, state, active, wch, idx, counts);
     return (int)cudaGetLastError();
 }
 
@@ -341,8 +366,9 @@ extern "C" int rt_wave_bounce(
         uint32_t* state, int* active, int* wch, int* idx, long long n,
         int n_tiles, int tile, int n_bounces, int n_chunks, int n_groups,
         int chunk, int n_mats, int normalize_reflect_in, int has_metal,
-        int has_dielectric, void* stream) {
-    if (chunk != rt::CHUNK) return (int)cudaErrorInvalidValue;
+        int has_dielectric, unsigned long long* counts, void* stream) {
+    if (chunk != rt::CHUNK || (idx && counts))
+        return (int)cudaErrorInvalidValue;
     rt::Tables p = {tab, mats, chunks, n_chunks, n_mats,
                     {normalize_reflect_in, has_metal, has_dielectric}};
     const rt::Groups g = {groups, n_groups};
@@ -362,22 +388,25 @@ extern "C" int rt_wave_bounce(
     // recorder's: its 2-lane instance spilled registers with them and ran
     // 1-3 % slower on an H100 (PERF.md); tiles above TRACE_BLOCK rays (one
     // lane a ray) test chunk boxes only
-    decltype(&launch_bounce<true, 1, false>) launch = nullptr;
+    const bool count = counts != nullptr;
+    decltype(&launch_bounce<true, 1, false, false>) launch = nullptr;
     switch (L) {
-        case 1: launch = idx ? launch_bounce<true, 1, false>
-                             : launch_bounce<false, 1, false>; break;
-        case 2: launch = idx ? launch_bounce<true, 2, false>
-                             : grouped ? launch_bounce<false, 2, true>
-                                       : launch_bounce<false, 2, false>;
+        case 1: launch = idx ? launch_bounce<true, 1, false, false>
+                             : render_bounce<1, false>(count); break;
+        case 2: launch = idx ? launch_bounce<true, 2, false, false>
+                             : grouped ? render_bounce<2, true>(count)
+                                       : render_bounce<2, false>(count);
                 break;
-        case 4: launch = grouped ? launch_bounce<true, 4, true>
-                                 : launch_bounce<true, 4, false>; break;
-        case 8: launch = grouped ? launch_bounce<true, 8, true>
-                                 : launch_bounce<true, 8, false>; break;
+        case 4: launch = grouped ? launch_bounce<true, 4, true, false>
+                                 : launch_bounce<true, 4, false, false>;
+                break;
+        case 8: launch = grouped ? launch_bounce<true, 8, true, false>
+                                 : launch_bounce<true, 8, false, false>;
+                break;
         default: return (int)cudaErrorInvalidValue;
     }
     launch((unsigned)n_tiles, tile, (cudaStream_t)stream, p, g, tile_order,
-           (size_t)n, n_bounces, pay, state, active, wch, idx);
+           (size_t)n, n_bounces, pay, state, active, wch, idx, counts);
     return (int)cudaGetLastError();
 }
 

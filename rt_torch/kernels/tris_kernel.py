@@ -38,7 +38,12 @@ same bounce (``trace_bounce`` here, ``csrc/tris_trace.cuh`` there):
 
 A wrapper runs the plain version only when its tensors lie on the CPU; on
 a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches, nothing else.
+launches, nothing else.  While the program's spans are on
+(``profiling.enable``), the render launches of ``wave_first`` and
+``wave_bounce`` count their scan work into the program's counters
+(``profiling.counters``: ``wave_rays``, ``wave_chunk_scans``,
+``wave_box_tests``): the kernels through their counting instances, the
+plain versions from ``trace_bounce``'s ``scan_counts``.
 
 The plain versions are vectorised over all tiles at once — tensors are
 (n_tiles, th*tw) — and loop over chunks in Python, and over a chunk's
@@ -60,7 +65,7 @@ from rt_torch.config import EPSILON_TRIS, FLT_MAX
 from rt_torch.core import rng
 from rt_torch.core import vecmath as vm
 from rt_torch.kernels import tracer_common as tc
-from rt_torch.utils.profiling import count, span
+from rt_torch.utils.profiling import count, device_counts, enabled, span
 
 CHUNK = 32        # triangles per chunk
 GROUP = 32        # chunks per group box (csrc/tris_trace.cuh GROUP)
@@ -455,9 +460,13 @@ def wave_first_plain(packed: PackedScene, order, cam_row, times, row0: int,
     carry = (state, o, d, (one, one, one),
              torch.ones_like(state, dtype=torch.int32))
     tile_order = order.to(torch.int64).reshape(1, -1).expand(n_tiles, -1)
+    counting = _counting(track_idx)
+    entries = [] if counting else scan_counts
     state, o, d, atten, active, wch, *idx = trace_bounce(
-        packed, tile_order, carry, flags, scan_counts=scan_counts,
+        packed, tile_order, carry, flags, scan_counts=entries,
         track_idx=track_idx)
+    if counting:
+        _count_scans(entries, n_tiles * th * tw, scan_counts)
 
     payf = torch.stack([untiled(p) for p in (*o, *d, *atten, primary_dy)])
     return (payf, rng.to_i32(untiled(state)), untiled(active), untiled(wch),
@@ -475,6 +484,24 @@ def wave_raygen_plain(cam_row, times, row0: int, *, height: int, width: int,
         normalize_defocus_dir=normalize_defocus_dir)
     od = torch.stack([p.reshape(-1) for p in (*o, *d)])
     return od, d[1].reshape(-1), rng.to_i32(state.reshape(-1))
+
+
+def _counting(track_idx: bool) -> bool:
+    """Whether a wave launch counts its scan work: a render launch (not
+    the recorder's) while the program's spans are on."""
+    return enabled() and not track_idx
+
+
+def _count_scans(entries, rays: int, scan_counts=None) -> None:
+    """A plain render launch's scan work into the program's counters:
+    ``rays`` live rays traced, and the ray-chunk scans and box tests of its
+    ``trace_bounce`` entries, which go on to the caller's ``scan_counts``
+    too where it gave one."""
+    count("wave_rays", rays)
+    count("wave_chunk_scans", sum(e[0] for e in entries))
+    count("wave_box_tests", sum(e[1] for e in entries))
+    if scan_counts is not None:
+        scan_counts.extend(entries)
 
 
 def enters_groups(groups, o, inv_d):
@@ -556,18 +583,25 @@ def wave_bounce_plain(packed: PackedScene, tile_order, pay, state, active,
                  active[:m].reshape(n_tiles, tile))
         wch = torch.full((n_tiles, tile), -1, dtype=torch.int32,
                          device=state.device)
+        counting = _counting(track_idx)
+        entries = [] if counting else scan_counts
+        rays = 0
         for b in range(n_bounces):
             # a tile with no live ray is skipped by the kernel; here its
             # lanes pass through trace_bounce unchanged (no chunk is live
             # for it) except the chunk plane, which the skip leaves as it
             # was; its index plane is -1, as trace_bounce gives a dead ray
             tile_alive = (carry[4] > 0).any(dim=1, keepdim=True)
+            if counting:
+                rays += int((carry[4] > 0).sum())
             out = trace_bounce(packed, order, tuple(carry), flags,
-                               scan_counts=scan_counts, track_idx=track_idx)
+                               scan_counts=entries, track_idx=track_idx)
             carry = out[:5]
             wch = torch.where(tile_alive, out[5], wch)
             if track_idx:
                 idx_out[b, :m] = out[6].reshape(m)
+        if counting:
+            _count_scans(entries, rays, scan_counts)
         s, o, d, atten, act = carry
         pay[:, :m] = torch.stack([*o, *d, *atten]).reshape(9, m)
         state[:m] = rng.to_i32(s).reshape(m)
@@ -664,6 +698,7 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
     cam = _cam_array(cam_row)
 
     groups, n_groups = _groups(packed)
+    counts = device_counts(dev).data_ptr() if _counting(track_idx) else None
     lib = _build.load()
     code = lib.rt_wave_first(
         packed.tab.data_ptr(), packed.mats.data_ptr(),
@@ -674,7 +709,8 @@ def wave_first(packed: PackedScene, order, cam_row, times, row0: int,
         CHUNK, packed.mats.shape[0], height, width, height_pad, width_pad,
         n_frames, th, tw, int(normalize_defocus_dir),
         int(flags.normalize_reflect_in), int(flags.has_metal),
-        int(flags.has_dielectric), torch.cuda.current_stream(dev).cuda_stream)
+        int(flags.has_dielectric), counts,
+        torch.cuda.current_stream(dev).cuda_stream)
     name = "wave_record" if track_idx else "wave_first"
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
@@ -798,6 +834,8 @@ def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
     name = "wave_record_bounce" if track_idx else "wave_bounce"
     if n_tiles:
         groups, n_groups = _groups(packed)
+        counts = (device_counts(state.device).data_ptr()
+                  if _counting(track_idx) else None)
         lib = _build.load()
         code = lib.rt_wave_bounce(
             packed.tab.data_ptr(), packed.mats.data_ptr(),
@@ -806,7 +844,7 @@ def wave_bounce(packed: PackedScene, tile_order, pay, state, active,
             wch.data_ptr(), None if idx is None else idx.data_ptr(), n,
             n_tiles, tile, n_bounces, packed.n_chunks, n_groups, CHUNK,
             packed.mats.shape[0], int(flags.normalize_reflect_in),
-            int(flags.has_metal), int(flags.has_dielectric),
+            int(flags.has_metal), int(flags.has_dielectric), counts,
             torch.cuda.current_stream(state.device).cuda_stream)
         _build.check(lib, code, name)
         LAUNCHES[name] += 1
@@ -1006,18 +1044,36 @@ def scene_bounds(chunks):
     return lo, 1.0 / span
 
 
+@functools.lru_cache(maxsize=None)
+def _key_tables(device) -> tuple:
+    """The tables ``ray_sort_key`` reads on ``device``: the Morton spread
+    (``_spread10``) of every KEY_BITS-bit code, and the shift of each of
+    the key's six fields, (6, 1) int32."""
+    codes = torch.arange(1 << KEY_BITS, dtype=torch.int32, device=device)
+    shifts = torch.tensor([5, 4, 3, 2, 1, 0], dtype=torch.int32,
+                          device=device)
+    return _spread10(codes), shifts[:, None]
+
+
 def ray_sort_key(pay, active, lo, inv_span):
     """``morton`` coherence key: the ray origin's Morton code (KEY_BITS per
     axis over the scene bounds) above the direction's sign octant; dead
-    rays get DEAD_KEY and sort last.  int32, like every key here."""
-    top = float((1 << KEY_BITS) - 1)
-    q = [torch.clamp((pay[c] - lo[c]) * inv_span[c] * top, 0.0,
-                     top).to(torch.int32) for c in range(3)]
-    code = (_spread10(q[0]) << 2) | (_spread10(q[1]) << 1) | _spread10(q[2])
+    rays get DEAD_KEY and sort last.  int32, like every key here.
+
+    The three axes go through each operation together and the Morton
+    spread is a table read: 16 launches where spreading the bits took
+    about 70.  A large scene sorts before every bounce, and on a card such
+    small launches cost the host more time than the device."""
+    top = (1 << KEY_BITS) - 1
+    spread, shifts = _key_tables(pay.device)
+    q = torch.clamp((pay[0:3] - lo[:, None]) * inv_span[:, None]
+                    * float(top), 0.0, float(top)).to(torch.int32)
     # one direction bit per axis: floor((d + 1) * 1) clipped to [0, 1]
-    qd = [torch.clamp(pay[3 + c] + 1.0, 0.0, 1.0).to(torch.int32)
-          for c in range(3)]
-    key = (code << 3) | (qd[0] << 2) | (qd[1] << 1) | qd[2]
+    qd = torch.clamp(pay[3:6] + 1.0, 0.0, 1.0).to(torch.int32)
+    # the fields' bits are disjoint, so their sum is their OR (an origin
+    # that is no number gives some code in range, as any key would do)
+    fields = torch.cat([spread[torch.clamp(q, 0, top)], qd]) << shifts
+    key = fields.sum(dim=0, dtype=torch.int32)
     return torch.where(active > 0, key, torch.full_like(key, DEAD_KEY))
 
 

@@ -128,12 +128,21 @@ class ProgressiveRenderer:
     def image(self) -> np.ndarray:
         """The accumulator read back to the host: a wait for the work that
         feeds it (``render.wait``), then the copy alone
-        (``render.readback``)."""
+        (``render.readback``).  From a card the copy lands in page-locked
+        host memory, which copies at a steady rate where a pageable copy's
+        swings: a fresh buffer of torch's caching host allocator each call,
+        so an array a caller keeps never changes."""
         img = self.state.image
         with span("render.wait"):
             wait(img)
         with span("render.readback"):
-            out = img.cpu().numpy()
+            if img.is_cuda:
+                out = torch.empty(img.shape, dtype=img.dtype,
+                                  pin_memory=True)
+                out.copy_(img)
+            else:
+                out = img.cpu()
+            out = out.numpy()
         count("readback_bytes", out.nbytes)
         return out
 

@@ -16,6 +16,19 @@
 - ``count`` / ``counters``: plain integer counters, always on, read with
   the kernels' launch counts (``dispatch.launch_counts``) by
   ``counters()``;
+- the wave path's scan counters, counted only while spans are on: the
+  render launches of the first and the bounce kernel (K2, K3) then run
+  their counting instances, which add to an int64 accumulator on the card
+  (``device_counts``), and their plain versions add to ``COUNTS``.
+  ``counters()`` sums both, a wait for the card.  Per bounce of a ray,
+  as ``tris_kernel.trace_bounce``'s ``scan_counts`` entries 0 and 1
+  define them: ``wave_rays`` the live rays traced; ``wave_chunk_scans``
+  the ray-chunk scans (every live ray of a tile scans each chunk some
+  live ray of the tile enters nearer than its best hit);
+  ``wave_box_tests`` the box tests, on a table with group boxes each live
+  ray's group boxes and the chunk boxes of the groups it enters and of
+  every chunk past ``MAX_GROUPS`` groups (``group_box_tests``), without
+  them every chunk box for each ray of a tile that holds a live ray;
 - ``wait``: the program's explicit waits on the device, counted.
 """
 
@@ -33,7 +46,12 @@ import torch
 # device, and ``fit_replay``'s steps by the path they took (the replay
 # kernel, or autograd through the replay)
 COUNTS = {"sort_keys": 0, "readback_bytes": 0, "host_waits": 0,
-          "replay_kernel_steps": 0, "replay_autograd_steps": 0}
+          "replay_kernel_steps": 0, "replay_autograd_steps": 0,
+          "wave_rays": 0, "wave_chunk_scans": 0, "wave_box_tests": 0}
+# the counters the counting kernels add to on the card, in the order of the
+# slots of a device's accumulator
+DEVICE_COUNTS = ("wave_rays", "wave_chunk_scans", "wave_box_tests")
+_device_counts: dict = {}
 
 _enabled = False
 _records: list = []
@@ -86,6 +104,11 @@ def disable() -> None:
     _enabled = False
 
 
+def enabled() -> bool:
+    """Whether spans record, and the wave kernels count their scans."""
+    return _enabled
+
+
 def take() -> list:
     """The spans closed since the last ``take()``, as (name, start_ns,
     end_ns) in the order they closed (an inner span before its outer
@@ -99,12 +122,27 @@ def count(name: str, n: int = 1) -> None:
     COUNTS[name] += n
 
 
+def device_counts(device) -> torch.Tensor:
+    """The (len(DEVICE_COUNTS),) int64 accumulator that the counting
+    kernels on ``device`` add to, made zero at its first use."""
+    device = torch.device(device)
+    if device not in _device_counts:
+        _device_counts[device] = torch.zeros(
+            (len(DEVICE_COUNTS),), dtype=torch.int64, device=device)
+    return _device_counts[device]
+
+
 def counters() -> dict:
     """The kernels' launches so far by wrapper name, and the program's
-    counters."""
+    counters with what the counting kernels added on each card (a wait
+    for the card where one has counted)."""
     from rt_torch.kernels import dispatch
 
-    return dispatch.launch_counts() | COUNTS
+    out = dispatch.launch_counts() | COUNTS
+    for acc in _device_counts.values():
+        for name, n in zip(DEVICE_COUNTS, acc.tolist()):
+            out[name] += n
+    return out
 
 
 def device_sync(*tensors) -> None:

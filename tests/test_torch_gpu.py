@@ -778,6 +778,73 @@ def test_cuda_group_boxes_change_no_bit(name):
     assert (outs[0][4][:, 3 * 128:] == -1).all()
 
 
+@pytest.mark.gpu
+def test_cuda_counting_kernels_count_the_plain_scans_on_dragon(monkeypatch):
+    """A 128x128 frame of the dragon through the wave path (K2, then a
+    morton sort and a 1-bounce K3 a bounce), with the spans on: the
+    colors equal the uncounted kernels' bit for bit, and the counters'
+    change (the counting instances' accumulator) equals what the plain
+    versions count on the same frame (their ``scan_counts``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rt_torch.utils import profiling
+
+    sd = tscenes.scene_dragon(128, 128, device="cuda")
+    packed = tdispatch.pack_scene(sd.scene)
+    assert packed.groups is not None
+
+    def frame(spans: bool):
+        before = profiling.counters()
+        if spans:
+            profiling.enable()
+        try:
+            colors = tdispatch.render_color_frames(packed, sd.camera,
+                                                   sd.config, [TIME])
+            torch.cuda.synchronize()
+        finally:
+            profiling.disable()
+            profiling.take()
+        after = profiling.counters()
+        return colors, {k: after[k] - before[k]
+                        for k in profiling.DEVICE_COUNTS}
+
+    off, none = frame(False)
+    on, counted = frame(True)
+    assert _bit_equal(off, on)
+    assert not any(none.values()) and all(counted.values())
+    monkeypatch.setattr(ttk, "wave_first", ttk.wave_first_plain)
+    monkeypatch.setattr(ttk, "wave_bounce", ttk.wave_bounce_plain)
+    plain, plain_counts = frame(True)
+    assert _bit_equal(off, plain)
+    assert counted == plain_counts
+
+
+@pytest.mark.gpu
+def test_cuda_readback_is_pinned_and_a_kept_image_stays():
+    """``ProgressiveRenderer.image`` from a card: the accumulator's bits,
+    in page-locked memory, and an array a caller keeps does not change
+    when the renderer draws and reads back again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from rt_torch.render.renderer import ProgressiveRenderer
+
+    r = ProgressiveRenderer(tscenes.scene_suzanne(64, 48, device="cuda"),
+                            device="cuda")
+    r.draw()
+    kept = r.image
+    assert np.array_equal(kept, r.state.image.cpu().numpy())
+    assert torch.from_numpy(kept).is_pinned()
+    copy = kept.copy()
+    for _ in range(3):
+        r.draw()
+        later = r.image
+    assert np.array_equal(kept, copy)
+    assert np.array_equal(later, r.state.image.cpu().numpy())
+    assert not np.array_equal(later, kept)
+
+
 def _flat_frame(make_scene, width, height, n=None):
     """(tab, kinds, n, camera row, keyword arguments) of one frame of a
     sphere scene for the flat kernels, padded to the default tile; n: the

@@ -78,7 +78,9 @@ def test_counters_read_the_launches_with_the_programs_counters():
     c = profiling.counters()
     assert c.keys() == (dispatch.launch_counts().keys()
                         | {"sort_keys", "readback_bytes", "host_waits",
-                           "replay_kernel_steps", "replay_autograd_steps"})
+                           "replay_kernel_steps", "replay_autograd_steps",
+                           "wave_rays", "wave_chunk_scans",
+                           "wave_box_tests"})
     profiling.count("sort_keys", 7)
     assert profiling.counters()["sort_keys"] == c["sort_keys"] + 7
 
