@@ -1,9 +1,10 @@
 // Fused sphere path-trace kernels for Hopper (sm_90a).
 //
 //   spheres_kernel<false>   replaces rt/kernels/sphere_kernel.py:_kernel
-//                           (whole frame, flat scan: raygen, sample loop,
-//                           bounce loop, closest-hit scan over every row,
-//                           scatter, sky, divide by the sample count)
+//                           (whole frame, flat scan: raygen, the primary
+//                           ray's closest hit, sample loop, bounce loop,
+//                           closest-hit scan over every row, scatter, sky,
+//                           divide by the sample count)
 //   spheres_kernel<true>    replaces
 //                           rt/kernels/sphere_kernel.py:_kernel_record
 //                           (the same at one sample per pixel, and the
@@ -35,12 +36,23 @@
 // kernel, whose whole-tile early exit only skips work, so the image does
 // not depend on the tile.  The recorder then fills the
 // index planes of the bounces it did not run with -1; the TPU recorder runs
-// every bounce and its dead lanes write the same -1.  A thread owns one
-// pixel of a (th, tw) tile for the whole launch.  A persistent grid whose
-// lanes took new pixels as their paths ended was timed against this on an
-// H100 and was slower for the render kernel (0.85-0.98x) and the recorder
-// (0.78-0.89x): its bookkeeping and registers cost what the idle lanes did
-// (PERF.md).
+// every bounce and its dead lanes write the same -1.  Every sample traces
+// the pixel's primary ray anew, so its closest hit is the same in each: it
+// is found once, before the sample loop, and a sample's first bounce starts
+// at its resolve and scatter (at 64 samples and 10 bounces 1.05x; at one
+// bounce 1.7x).  A thread owns one pixel of a (th, tw) tile for the whole
+// launch, and its warp runs each sample in step, as long as its longest
+// path.  Two schedules that fill those idle lanes were timed against this
+// on an H100 and lost: a persistent grid whose lanes took new pixels as
+// their paths ended, slower for the render kernel (0.85-0.98x) and the
+// recorder (0.78-0.89x), its bookkeeping and registers costing what the
+// idle lanes did; and one loop over a pixel's samples' bounces, a lane
+// starting its next sample as soon as its path ended, which took 1.27x
+// fewer warp turns on the dielectric frame (kernels/sphere_schedule.py)
+// but ran no faster (0.98-1.01x) with 4 more registers: there most of the
+// time goes to the pixels whose refracted rays re-hit their sphere until
+// the bounces run out in nearly every sample, and no schedule of a pixel's
+// own samples shortens that chain (PERF.md).
 //
 // Chunked kernel: one block is one (th, tw) pixel tile, and the tile is the
 // unit of the chunk cull, as in the TPU kernel: if ANY live ray of the block
@@ -109,6 +121,21 @@ __device__ __forceinline__ void resolve_hit(const float* row, int kind,
                r.atten.z * albedo.z * 0.7f};
 }
 
+// The closest hit over the first n staged rows, each read by every thread
+// at once (a broadcast), in ascending order: t < bt is strict, so the first
+// of equal t wins.
+__device__ __forceinline__ void flat_scan(const float4* rows, int n,
+                                          const Quadratic& q, float& bt,
+                                          int& bidx) {
+    for (int si = 0; si < n; ++si) {
+        float t;
+        if (hit_sphere(rows[si * (SPH_COLS / 4)], q, bt, t)) {
+            bt = t;
+            bidx = si;
+        }
+    }
+}
+
 // grid (Wp/tw, Hp/th), block th*tw.  out is (3, Hp, Wp).  Dynamic shared
 // memory: n_spheres rows of SPH_COLS floats, then n_spheres kinds.
 // RECORD: idx is (bounces, Hp, Wp) and gets the winning row of every bounce,
@@ -131,24 +158,26 @@ __global__ void spheres_kernel(const float* __restrict__ tab,
     const size_t plane = (size_t)f.height_pad * f.width_pad;
     const size_t pix = (size_t)p.row * f.width_pad + p.col;
     Vec3 acc = {0.0f, 0.0f, 0.0f};
+    // every sample traces the same primary ray: its closest hit, found once
+    float bt0 = FLT_MAX_WGSL;
+    int bidx0 = -1;
+    if (f.bounces > 0)
+        flat_scan(s_dyn, n_spheres, Sph::ray(p.o, p.d), bt0, bidx0);
     for (int s = 0; s < f.spp; ++s) {
         Ray r = {p.state, p.o, p.d, {1.0f, 1.0f, 1.0f}, 1};
+        float bt = bt0;
+        int bidx = bidx0;
         int b = 0;
         for (; b < f.bounces; ++b) {
-            const Quadratic q = Sph::ray(r.o, r.d);
-            float bt = FLT_MAX_WGSL;
-            int bidx = -1;
-            for (int si = 0; si < n_spheres; ++si) {
-                float t;
-                if (hit_sphere(s_dyn[si * (SPH_COLS / 4)], q, bt, t)) {
-                    bt = t;
-                    bidx = si;
-                }
-            }
             if (bt == FLT_MAX_WGSL) break;  // escaped to the sky
             if (RECORD) idx[b * plane + pix] = bidx;
             resolve_hit(s_tab + bidx * SPH_COLS, s_kind[bidx], f.flags, bt,
                         r);
+            // the next bounce's closest hit
+            bt = FLT_MAX_WGSL;
+            bidx = -1;
+            if (b + 1 < f.bounces)
+                flat_scan(s_dyn, n_spheres, Sph::ray(r.o, r.d), bt, bidx);
         }
         // the planes of the bounces the thread did not run
         if (RECORD)

@@ -1212,9 +1212,11 @@ def _flat_occupancy(path: str, device="cuda"):
     (``sphere_schedule``, from its plain version at the path's size and
     samples): segments (a bounce's scan, and the hit's resolve and
     scatter) a sample per pixel, mean and most, and their histogram; the
-    warp turns and lane efficiency of the tile schedule (a thread a pixel
-    of an 8x16 tile), and the factor of fewer turns that a schedule
-    without idle lanes would reach at best."""
+    warp turns and lane efficiency of a thread a pixel of an 8x16 tile
+    with the samples in step (``tile_schedule``) and with each lane's
+    samples back to back in one loop (``merged_schedule``), the factor of
+    fewer turns that gives, and the factor that a schedule without idle
+    lanes would reach at best."""
     from rt_torch.kernels import sphere_schedule
 
     card = _card()
@@ -1224,6 +1226,7 @@ def _flat_occupancy(path: str, device="cuda"):
         **kw).cpu()
     th, tw = kw["th"], kw["tw"]
     tile = sphere_schedule.tile_schedule(scans, th, tw)
+    merged = sphere_schedule.merged_schedule(scans, th, tw)
     print(json.dumps({
         "measure": "occupancy", "path": path, "card": card,
         "size": [kw["width"], kw["height"]],
@@ -1233,6 +1236,8 @@ def _flat_occupancy(path: str, device="cuda"):
             "mean": float(scans.float().mean()), "most": int(scans.max()),
             "histogram": torch.bincount(scans.reshape(-1).long()).tolist()},
         "tile": [th, tw], "tile_schedule": tile,
+        "merged_schedule": merged,
+        "merged_fewer_turns": tile["warp_turns"] / merged["warp_turns"],
         "fewer_turns_at_best": 1 / tile["lane_efficiency"]}), flush=True)
 
 

@@ -92,32 +92,49 @@ def test_cuda_raygen_kernel_equals_plain_version_bitwise():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("make_scene,spp,sky_from_final_dir", [
-    ("scene_sphere_simple", 1, False), ("scene_sphere_simple", 3, False),
-    ("test_scene_complex", 2, True), ("scene_sphere_globe", 1, False)])
+@pytest.mark.parametrize("make_scene,spp,bounces,sky_from_final_dir", [
+    ("scene_sphere_simple", 1, None, False),
+    ("scene_sphere_simple", 3, None, False),
+    ("test_scene_complex", 2, None, True),
+    ("scene_sphere_globe", 1, None, False)] + [
+    ("scene_rtiow_three_spheres", spp, bounces, False)
+    for spp in (1, 3, 8) for bounces in (1, 4, 10)] + [
+    ("scene_rtiow_three_spheres", 3, 0, False)])
 def test_cuda_sphere_kernel_equals_plain_version_bitwise(make_scene, spp,
+                                                         bounces,
                                                          sky_from_final_dir):
-    """K5: the whole frame, all three materials, the sample loop."""
+    """K5: the whole frame, all three materials, the sample loop from the
+    primary ray's closest hit found once; on rtiow_three paths end at the
+    sky and at budgets of 1, 4 and 10 bounces, and at 0 every sample is the
+    sky.  At one sample K8 too: color and index planes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sd = getattr(tscenes, make_scene)(128, 96, device="cuda")
     p = tdispatch.pack_scene(sd.scene, sd.config)
     assert p.chunks is None
     args = dict(n_spheres=p.n, height=96, width=128, height_pad=96,
-                width_pad=128, bounces=sd.config.bounces,
+                width_pad=128,
+                bounces=sd.config.bounces if bounces is None else bounces,
                 normalize_defocus_dir=False,
-                flags=tdispatch.trace_flags(sd.config), spp=spp,
+                flags=tdispatch.trace_flags(sd.config),
                 sky_from_final_dir=sky_from_final_dir)
     cam_row = tdispatch.pack_camera(sd.camera)
     before = tsk.LAUNCHES["spheres"]
     k = tsk.render_color_spheres(p.tab, p.kinds, cam_row, TIME, th=8, tw=16,
-                                 **args)
+                                 spp=spp, **args)
     assert tsk.LAUNCHES["spheres"] == before + 1
     assert _bit_equal(k, tsk.render_color_spheres_plain(
-        p.tab, p.kinds, cam_row, TIME, **args))
+        p.tab, p.kinds, cam_row, TIME, spp=spp, **args))
+    if spp == 1:
+        color, idx = tsk.render_color_spheres_record(
+            p.tab, p.kinds, cam_row, TIME, th=8, tw=16, **args)
+        p_color, p_idx = tsk.render_color_spheres_record_plain(
+            p.tab, p.kinds, cam_row, TIME, **args)
+        assert _bit_equal(color, p_color) and _bit_equal(color, k)
+        assert torch.equal(idx, p_idx)
     with pytest.raises(ValueError, match="n_spheres"):
         tsk.render_color_spheres(p.tab, p.kinds, cam_row, TIME, th=8, tw=16,
-                                 **dict(args, n_spheres=0))
+                                 spp=spp, **dict(args, n_spheres=0))
 
 
 @pytest.mark.gpu

@@ -42,6 +42,7 @@ from rt.render.renderer import render_color as oracle_render_color
 from rt.scene import scenes as jscenes
 from rt_torch.kernels import dispatch as tdispatch
 from rt_torch.kernels import sphere_kernel as tsk
+from rt_torch.kernels import sphere_schedule as tss
 from rt_torch.kernels.tris_kernel import TraceFlags
 from rt_torch.render import ppm as tppm
 from rt_torch.scene import scenes as tscenes
@@ -429,3 +430,69 @@ def test_kernel_operands_must_be_contiguous_cuda_tensors():
     reaches a kernel."""
     with pytest.raises(ValueError, match="CUDA"):
         tsk._require(torch.zeros((4, 8)), "tab", torch.float32, (4, 8))
+
+
+# ---- the flat kernel's schedule (kernels/sphere_schedule.py) ---------------
+# Warp turns over hand-built segment counts: 32 consecutive threads of a
+# row-major (th, tw) tile are a warp.  Counts are integers: tolerance none.
+
+def test_merged_schedule_takes_fewer_turns_where_long_paths_fall_apart():
+    """Two samples of one 8x16 tile (warps of two rows).  Warp 0's longest
+    paths fall in different samples on different lanes: in step it turns
+    5 + 4, one loop over both samples 6 (lane 0's 5 + 1).  Warp 3's fall on
+    one lane, so both turn 1 + 3.  Segments are the same in both."""
+    scans = torch.ones((2, 8, 16), dtype=torch.int32)
+    scans[0, 0, 0] = 5          # warp 0, lane 0, sample 0
+    scans[1, 0, 1] = 4          # warp 0, lane 1, sample 1
+    scans[1, 7, 15] = 3         # warp 3, lane 31, sample 1
+    tile = tss.tile_schedule(scans, 8, 16)
+    merged = tss.merged_schedule(scans, 8, 16)
+    assert tile == {"warp_turns": 9 + 2 + 2 + 4, "segments": 265,
+                    "lane_efficiency": 265 / (32 * 17)}
+    assert merged == {"warp_turns": 6 + 2 + 2 + 4, "segments": 265,
+                      "lane_efficiency": 265 / (32 * 14)}
+    for schedule in (tss.tile_schedule, tss.merged_schedule):
+        with pytest.raises(ValueError, match="whole warps"):
+            schedule(scans, 4, 4)
+        with pytest.raises(ValueError, match="whole warps"):
+            schedule(scans[:, :6], 8, 16)
+
+
+def _turns_by_loop(work, th, tw, merged):
+    """Warp turns counted warp by warp: in step, the most segments of a
+    warp's lanes in each sample, summed; merged, the most of its lanes'
+    segments summed over the samples."""
+    spp, hp, wp = work.shape
+    turns = 0
+    for r0 in range(0, hp, th):
+        for c0 in range(0, wp, tw):
+            tile = work[:, r0:r0 + th, c0:c0 + tw].reshape(spp, -1)
+            for w in range(0, th * tw, 32):
+                lanes = tile[:, w:w + 32]
+                turns += int(lanes.sum(axis=0).max() if merged
+                             else lanes.max(axis=1).sum())
+    return turns
+
+
+@pytest.mark.parametrize("spp,th,tw", [(1, 8, 16), (3, 8, 16), (6, 4, 32),
+                                       (4, 16, 8)])
+def test_schedules_equal_a_count_warp_by_warp(spp, th, tw):
+    """Seeded counts of 1 to 10 segments over 2x3 tiles: both schedules'
+    turns are the count warp by warp; the merged one never turns more than
+    the one in step, equals it at one sample, and no schedule takes fewer
+    turns than the segments over 32."""
+    g = torch.Generator().manual_seed(1000 + spp)
+    scans = torch.randint(1, 11, (spp, 2 * th, 3 * tw), generator=g,
+                          dtype=torch.int32)
+    tile = tss.tile_schedule(scans, th, tw)
+    merged = tss.merged_schedule(scans, th, tw)
+    work = scans.numpy()
+    assert tile["warp_turns"] == _turns_by_loop(work, th, tw, False)
+    assert merged["warp_turns"] == _turns_by_loop(work, th, tw, True)
+    assert tile["segments"] == merged["segments"] == int(work.sum())
+    assert -(-merged["segments"] // 32) <= merged["warp_turns"]
+    assert merged["warp_turns"] <= tile["warp_turns"]
+    if spp == 1:
+        assert merged == tile
+    else:
+        assert merged["warp_turns"] < tile["warp_turns"]
