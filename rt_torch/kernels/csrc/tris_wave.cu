@@ -138,7 +138,7 @@ wave_first_kernel(
 // pixels a thread with 64-bit stores ran 4-6 % slower at 512x512 (one
 // wave: each thread's two rays in turn) and 5 % faster at 1024x1024; four
 // pixels 33-35 % slower at 512x512, a flat grid that divides each
-// thread's index 6-7 % slower (python -m rt_torch.variants raygen).
+// thread's index 6-7 % slower (PERF.md).
 constexpr int RAYGEN_THREADS = 128;
 
 // od holds 6 planes of n = F*Hp*Wp: o(3) d(3); pdy_out and state_out one

@@ -2,22 +2,9 @@
 
     python -m rt_torch.measure tiles [PATH]       # tile-shape sweep
     python -m rt_torch.measure breakdown [PATH]   # where a frame's time goes
-    python -m rt_torch.measure wall [PATH]        # ms per frame, five windows
     python -m rt_torch.measure fit [FIT]          # ms per record and per step
-    python -m rt_torch.measure lookup [FIT]       # row lookups, forward+backward
-    python -m rt_torch.measure record [FIT]       # one record, mono vs wave,
-                                                  # and where a wave record's
-                                                  # device time goes
     python -m rt_torch.measure oracle [PATH]      # ms per frame, oracle
     python -m rt_torch.measure kernels [GROUP]    # ms per launch, K2-K10b
-    python -m rt_torch.measure raygen [SIZE]      # K4 beside an empty
-                                                  # kernel, a fill and a
-                                                  # copy of its bytes; its
-                                                  # wrapper's host cost
-    python -m rt_torch.measure pack [SIZE]        # one record that packs
-                                                  # its tables against one
-                                                  # handed them (512,
-                                                  # 1080p; default both)
     python -m rt_torch.measure occupancy [PATH]   # live rays, tiles, warps
     python -m rt_torch.measure occupancy lucy_512 # the recorder's work per
                                                   # bounce (or dragon_512)
@@ -264,19 +251,6 @@ def tiles(path: str = "suzanne", frames: int = 16):
                 for m in runs[t]]}), flush=True)
 
 
-def wall(path: str = "suzanne", windows: int = 5):
-    """Wall ms per frame of ``windows`` windows in a row in one process:
-    the spread between them is the host's, the device work is the same."""
-    card = _card()
-    r = renderer(path)
-    r.draw_frames(4)                                      # warm-up
-    runs = [_ms_per_frame(r, 16) for _ in range(windows)]
-    print(json.dumps({
-        "measure": "wall", "path": path, "card": card,
-        "min_window_s": MIN_WINDOW_S, "ms_per_frame": runs,
-        "frames_per_s": [1e3 / m for m in runs]}), flush=True)
-
-
 def run_oracle(path: str = "suzanne", frames: int = 1) -> dict:
     """Wall ms per frame of the named path's scene, size and config through
     the oracle backend (after one warm-up frame), and the kernel launches it
@@ -420,159 +394,6 @@ def fit(name: str = "suzanne_1080p"):
         "top_operators_ms": {k: ops[k] for k in top}}), flush=True)
 
 
-def lookup(name: str = "suzanne_1080p"):
-    """Forward + backward milliseconds of three ways to fetch one bounce's
-    rows from the replay's differentiable table (the material table of a
-    mesh, the sphere table) at the named fit's hits: the indexing operator,
-    ``index_select`` and the embedding lookup ``replay.gather_rows`` uses."""
-    from torch.nn.functional import embedding
-
-    (scene, *_), _, _, hits = _step_setup(name)
-    if not isinstance(scene, SphereArray):
-        tri, tab = replay._tris_replay_tables(scene)
-        idx = replay._gather_tri_rows(tri, hits[0])[..., 12].long()
-    else:
-        tab = replay._sphere_replay_table(scene)
-        idx = torch.clamp(hits[0], min=0).long()
-    tab = tab.detach().requires_grad_()
-    cot = torch.ones(*idx.shape, tab.shape[1], device=tab.device)
-    ways = {
-        "index": lambda: tab[idx],
-        "index_select": lambda: tab.index_select(0, idx.reshape(-1)).reshape(
-            cot.shape),
-        "embedding": lambda: embedding(idx, tab),
-    }
-    ms = {k: _event_ms(lambda f=f: torch.autograd.grad(f(), tab, cot), 3)
-          for k, f in ways.items()}
-    print(json.dumps({"measure": "lookup", "card": _card(), "fit": name,
-                      "table": list(tab.shape), "lookups": idx.numel(),
-                      "forward_backward_ms": ms}), flush=True)
-
-
-def record(name: str = "lucy_512", reps: int = 5):
-    """Milliseconds of one ``record_hits`` of the named fit's scene at its
-    start parameters through the whole-frame recorder (K9, ``"mono"``) and
-    the sorted-stream one (K10a + K10b, ``"wave"``), by CUDA events, in
-    turns (mono, wave, wave, mono); and how far their colors and hit ids
-    agree (they differ only where a ray meets two triangles of different
-    chunks at exactly the same t, or at a box-surface rounding).  Then
-    where the wave record's device time goes (``wave_split``), from
-    torch.profiler over ``reps`` records."""
-    scene, camera, config, _ = fit_setup(name)
-    run = {b: (lambda b=b: replay.record_hits(scene, camera, config, 1000,
-                                              tris_backend=b))
-           for b in ("mono", "wave")}
-    out = {b: run[b]() for b in run}
-    ms = {b: [] for b in run}
-    for b in ("mono", "wave", "wave", "mono"):
-        ms[b].append(_event_ms(run[b], reps))
-    dispatch.reset_launch_counts()
-    for b in run:
-        run[b]()
-    launches = dispatch.launch_counts()
-    (cm, im), (cw, iw) = out["mono"], out["wave"]
-    print(json.dumps({
-        "measure": "record", "card": _card(), "fit": name,
-        "scene_id": FITS[name].scene_id, "size": [config.width,
-                                                  config.height],
-        "bounces": config.bounces, "triangles": scene.m,
-        "ms_per_record": ms, "launches_per_record": launches,
-        "color_pixels_differ": float((cm != cw).any(dim=-1).float().mean()),
-        "hit_ids_differ": float((im != iw).float().mean()),
-        "wave_split": _record_split(run["wave"], reps,
-                                    config.bounces - 1)}), flush=True)
-
-
-# the parts of a wave record the split reads from ranges around a function
-# (module, function, label): the stream sorts are the calls of torch.sort
-# (their kernels alone; the key and the gathers fall to "other")
-_RECORD_PARTS = (
-    (tris_kernel, "pack_tri_table", "table packing"),
-    (tris_kernel, "tile_chunk_order", "tile_chunk_order"),
-    (torch, "sort", "sorts"),
-)
-
-
-def _device_events(prof, names):
-    """The profiled kernels whose name holds one of ``names``, in launch
-    order: [(name, device ms)]."""
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and any(k in e.name for k in names)]
-    evs.sort(key=lambda e: e.time_range.start)
-    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evs]
-
-
-def _record_split(run, reps: int, bounces: int) -> dict:
-    """Device ms per record of ``run`` (a wave ``record_hits``) by part:
-    the kernels K10a and K10b (by bounce) from their own events, the stream
-    sorts, ``tile_chunk_order`` and the table packing from ranges around
-    them, and everything else; the device's busy ms and its idle share of
-    the record's wall time (host clock, unprofiled)."""
-    from torch.profiler import ProfilerActivity, record_function
-
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-
-    saved = [(m, f, getattr(m, f)) for m, f, _ in _RECORD_PARTS]
-
-    def ranged(fn, label):
-        def call(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return call
-
-    for (m, f, label), (_, _, fn) in zip(_RECORD_PARTS, saved):
-        setattr(m, f, ranged(fn, label))
-    try:
-        profs = _record_profiles(run, reps, bounces, (
-            ProfilerActivity.CPU, ProfilerActivity.CUDA))
-    finally:
-        for m, f, fn in saved:
-            setattr(m, f, fn)
-    # the device-side events: the kernels and copies, and the ranges'
-    # spans on the device (named by their labels), to which each kernel
-    # that starts inside one belongs
-    labels = [label for *_, label in _RECORD_PARTS]
-    split = dict.fromkeys(["K10a", *(f"K10b b{b + 1}" for b in
-                                     range(bounces)), *labels], 0.0)
-    busy, spans = 0.0, 0
-    for prof in profs:
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        ranges = [(e.name, e.time_range.start, e.time_range.end)
-                  for e in events if e.name in labels]
-        spans += len(ranges)
-        bounce = 0
-        for e in sorted(events, key=lambda e: e.time_range.start):
-            if e.name in labels:
-                continue
-            ms = e.time_range.elapsed_us() / 1e3 / reps
-            busy += ms
-            if "wave_first_kernel" in e.name:
-                split["K10a"] += ms
-            elif "wave_bounce_kernel" in e.name:
-                bounce += 1
-                split[f"K10b b{bounce}"] += ms
-            else:
-                for label, start, end in ranges:
-                    if start <= e.time_range.start < end:
-                        split[label] += ms
-                        break
-    split["K10b"] = sum(split[f"K10b b{b + 1}"] for b in range(bounces))
-    split["other"] = busy - sum(split[k] for k in ("K10a", "K10b",
-                                                  *labels))
-    return {"device_ms": split, "device_busy_ms": busy,
-            "wall_ms": wall_ms,
-            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "device_spans": spans}
-
-
 def wave_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
     """K2's inputs on one frame of ``make_scene`` at size x size (the
     tables, tile, flags and eye order the scene's wave path gives it), K2's
@@ -665,69 +486,6 @@ def _mono_ms(width: int, height: int, bounces: int, record_: bool,
                         "tris_mono_kernel")
 
 
-PACK_SIZES = {"512": (512, 512), "1080p": (1920, 1080)}
-
-
-def _device_busy_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() from torch.profiler: the sum of the
-    device time of every kernel, copy and fill one call issues, host gaps
-    left out."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages())
-    return total / reps / 1e3
-
-
-def pack(size: str = "", reps: int = 10):
-    """What ``fit_replay``'s one packing a fit saves a record: one
-    ``record_hits`` of Suzanne at the scene's own bounces that packs the
-    recorder's tables itself, against one handed the tables packed once
-    with the current material table swapped in (as ``fit_replay`` does),
-    by CUDA events and by the profiler's device time in turns (packs,
-    packed, packed, packs), at 512x512 and 1920x1080 (or the one SIZE
-    named); and ``pack_tri_table`` and ``material_table`` alone."""
-    for name in ([size] if size else PACK_SIZES):
-        w, h = PACK_SIZES[name]
-        sd = scenes.scene_suzanne(w, h, device="cuda")
-        packed = tris_kernel.pack_tri_table(sd.scene)
-        run = {
-            "packs": lambda: replay.record_hits(sd.scene, sd.camera,
-                                                sd.config, 1000),
-            "packed": lambda: replay.record_hits(
-                sd.scene, sd.camera, sd.config, 1000, packed=packed._replace(
-                    mats=tris_kernel.material_table(sd.scene)))}
-        same = all(torch.equal(a, b) for a, b in zip(run["packs"](),
-                                                     run["packed"]()))
-        ms = {k: [] for k in run}
-        for k in ("packs", "packed", "packed", "packs"):
-            ms[k].append(_event_ms(run[k], reps))
-        busy = {k: [] for k in run}
-        for k in ("packs", "packed", "packed", "packs"):
-            busy[k].append(_device_busy_ms(run[k], reps))
-        print(json.dumps({
-            "measure": "pack", "card": _card(), "size": [w, h],
-            "bounces": sd.config.bounces, "triangles": sd.scene.m,
-            "ms_per_record": ms,
-            "saved_ms_per_record": (sum(ms["packs"]) - sum(ms["packed"]))
-            / 2,
-            "device_busy_ms_per_record": busy,
-            "saved_device_ms_per_record": (sum(busy["packs"])
-                                           - sum(busy["packed"])) / 2,
-            "pack_tri_table_device_ms": _device_busy_ms(
-                lambda: tris_kernel.pack_tri_table(sd.scene), reps),
-            "pack_tri_table_ms": _event_ms(
-                lambda: tris_kernel.pack_tri_table(sd.scene), reps),
-            "material_table_ms": _event_ms(
-                lambda: tris_kernel.material_table(sd.scene), reps),
-            "records_equal": same}), flush=True)
-
-
 def record_state(make_scene, size: int, device="cuda") -> SimpleNamespace:
     """K10a's inputs on one frame of ``make_scene`` at size x size, over the
     tables the recorder packs (no split_big) and the eye's order, K10a's
@@ -796,6 +554,16 @@ def _recorder_ms(make_scene, size: int, reps: int) -> dict:
         out[f"K10b b{b + 1} (record)"] = sum(r[b] for r in bounce) / reps
     out["K10b sum (record)"] = sum(map(sum, bounce)) / reps
     return out
+
+
+def _device_events(prof, names):
+    """The profiled kernels whose name holds one of ``names``, in launch
+    order: [(name, device ms)]."""
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and any(k in e.name for k in names)]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evs]
 
 
 def _record_profiles(run, reps: int, bounces: int, activities):
@@ -916,92 +684,6 @@ def empty_ms(blocks: int, threads: int, reps: int = 50) -> float:
     return _graph_ms(launch, reps)
 
 
-def _host_us(fn, calls: int = 2000) -> float:
-    """Host microseconds of one fn() over ``calls`` calls after one (the
-    device's work, a few microseconds a call, queues behind)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
-
-
-def raygen(size: str = "512", reps: int = 50):
-    """K4 at size x size (one frame of Suzanne's camera): from CUDA graphs
-    of ``reps`` launches, twice in turns, K4, an empty kernel on the tile
-    grid (one block of th*tw threads a tile, K4's former launch) and
-    on K4's own grid, a fill of K4's bytes (8 planes) and a copy of them,
-    the card's own rates for those bytes with the 50 MB L2 warm; then the
-    wrapper's host cost and its parts by the host clock."""
-    card = _card()
-    n = int(size) ** 2
-    dev = torch.device("cuda")
-    args = raygen_args(int(size))
-    cam_row, times, kw = args.cam_row, args.times, args.kw
-    th, tw = kw["th"], kw["tw"]
-    run = lambda: tris_kernel.wave_raygen(cam_row, times, 0, **kw)
-    lib = _build.load()
-    gx, gy, gz = tris_kernel.raygen_grid(1, int(size), int(size))
-    grid = [gx * gy * gz, tris_kernel.RAYGEN_THREADS]
-    dst = torch.empty(8 * n, dtype=torch.float32, device=dev)
-    src = torch.zeros_like(dst)
-    ms = {}
-    for turn in range(2):
-        for name, fn in (
-                ("K4", run),
-                ("fill", lambda: dst.fill_(1.0)),
-                ("copy", lambda: dst.copy_(src))):
-            ms.setdefault(name, []).append(_graph_ms(fn, reps))
-        ms.setdefault("empty_tile_grid", []).append(
-            empty_ms(n // (th * tw), th * tw, reps))
-        ms.setdefault("empty_k4_grid", []).append(
-            empty_ms(grid[0], grid[1], reps))
-    bound_ms, bound_by, flops = raygen_bound(n)
-    # the wrapper and its parts
-    cam = tris_kernel._cam_array(cam_row)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    planes = torch.empty((8, n), dtype=torch.float32, device=dev)
-    ptrs = (planes.data_ptr(), planes[6].data_ptr(), planes[7].data_ptr())
-    geom = (kw["height"], kw["width"], kw["height_pad"], kw["width_pad"], 1)
-    launch_args = (cam.ctypes.data, times.data_ptr(), 0, *ptrs, *geom,
-                   int(kw["normalize_defocus_dir"]), stream)
-    host = {
-        "wrapper": _host_us(run),
-        "cam_array": _host_us(lambda: tris_kernel._cam_array(cam_row)),
-        "cam_pointer": _host_us(lambda: cam.ctypes.data),
-        "empty_x3": _host_us(lambda: (
-            torch.empty((6, n), dtype=torch.float32, device=dev),
-            torch.empty((n,), dtype=torch.float32, device=dev),
-            torch.empty((n,), dtype=torch.int32, device=dev))),
-        "empty_8n_views": _host_us(lambda: (lambda b: (
-            b[0:6], b[6], b[7].view(torch.int32)))(torch.empty(
-                (8, n), dtype=torch.float32, device=dev))),
-        "data_ptrs": _host_us(lambda: (planes.data_ptr(),
-                                       planes[6].data_ptr(),
-                                       planes[7].data_ptr())),
-        "stream": _host_us(
-            lambda: torch.cuda.current_stream(dev).cuda_stream),
-        "load": _host_us(_build.load),
-        "launch": _host_us(lambda: lib.rt_wave_raygen(*launch_args)),
-        "check": _host_us(lambda: _build.check(lib, 0, "wave_raygen")),
-        "checks": _host_us(lambda: (
-            tris_kernel._check_tile(th, tw, n // int(size), int(size)),
-            tris_kernel._check_block(th, tw),
-            tris_kernel._require(times, "times", torch.int32))),
-    }
-    host_by_events = _event_ms(run, reps)
-    print(json.dumps({
-        "measure": "raygen", "card": card, "size": [int(size)] * 2,
-        "pixels": n, "bytes": 8 * n * 4, "reps": reps, "grid": grid,
-        "tile_grid": [n // (th * tw), th * tw], "ms": ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-        "host_us": host, "wrapper_ms_by_events": host_by_events}),
-        flush=True)
-
-
 def sphere_frame_args(path: str, device="cuda", **config):
     """(packed tables, camera row, keyword arguments) of one frame of the
     named sphere path's kernel at the default tile, the frame padded to
@@ -1037,7 +719,6 @@ def _sphere_ms(path: str, reps: int, bounces: int | None = None) -> float:
 
 
 KERNEL_GROUPS = ("all", "wave", "frame", "depth")
-RAYGEN_SIZES = ("128", "512", "1024")
 
 
 def kernels(group: str = "all", reps: int = 20):
@@ -1372,14 +1053,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("rt_torch.measure needs a CUDA device", file=sys.stderr)
         return 1
-    what = {"tiles": tiles, "breakdown": breakdown, "wall": wall, "fit": fit,
-            "lookup": lookup, "record": record, "oracle": oracle,
-            "kernels": kernels, "occupancy": occupancy, "raygen": raygen,
-            "pack": pack}
-    names = (FITS if argv[:1] in (["fit"], ["lookup"], ["record"])
+    what = {"tiles": tiles, "breakdown": breakdown, "fit": fit,
+            "oracle": oracle, "kernels": kernels, "occupancy": occupancy}
+    names = (FITS if argv[:1] == ["fit"]
              else KERNEL_GROUPS if argv[:1] == ["kernels"]
-             else PACK_SIZES if argv[:1] == ["pack"]
-             else RAYGEN_SIZES if argv[:1] == ["raygen"]
              else {**PATHS, **FITS} if argv[:1] == ["occupancy"] else PATHS)
     if (len(argv) not in (1, 2) or argv[0] not in what
             or (len(argv) == 2 and argv[1] not in names)):

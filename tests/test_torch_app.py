@@ -33,6 +33,7 @@ from rt_torch.scene import scenes
 from rt_torch.scene.objloader import ASSET_DIR, load_asset, parse_obj
 from rt_torch.utils import RenderStats, Timer, device_sync, profile_trace
 from rt_torch.viewer import TerminalViewer, image_to_ansi
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

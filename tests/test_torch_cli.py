@@ -13,6 +13,7 @@ from rt_torch import cli
 from rt_torch.render.ppm import write_ppm
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_scene_id_fallback_semantics():

@@ -22,6 +22,7 @@ import torch
 from rt_torch.kernels import dispatch
 from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import scenes
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 32      # visit entries a batch (tris_trace.cuh BATCH)
 TILE = 32       # rays a tile

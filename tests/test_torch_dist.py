@@ -29,6 +29,7 @@ import torch
 from rt_torch.dist import sharding
 from rt_torch.render import ppm as tppm
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_dist_worker.py")

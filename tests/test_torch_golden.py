@@ -32,6 +32,7 @@ import os
 import pytest
 
 from rt_torch import goldens
+from _torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(__file__)
 DIELECTRIC = ["cover", "rtiow_three_spheres"]

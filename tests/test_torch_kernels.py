@@ -31,6 +31,7 @@ from rt_torch.kernels import tracer_common as ttc
 from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import scenes as tscenes
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H, HP, WP, TW = 64, 32, 32, 128, 128
 TIME = 1000

@@ -21,22 +21,12 @@ from rt_torch.kernels import dispatch
 from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import scenes
 from rt_torch.utils import profiling
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE, BOUNCES = 16, 3
 TIMES = [123456789, 4000000007]
 N_BIG = 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the reference's brute-force blocks are a few
-    million elements, which several threads take longer over on a shared
-    CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _obj(tris: np.ndarray) -> str:

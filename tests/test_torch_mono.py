@@ -34,6 +34,7 @@ from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes as tscenes
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H, HP, WP, TH, TW = 64, 32, 32, 128, 16, 128
 TIME = 1000

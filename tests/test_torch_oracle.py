@@ -61,6 +61,7 @@ from rt_torch.render.ppm import parse_ppm
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes as tscenes
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIME = 1000
 FLIP_ABOVE, FLIP_LIMIT = 1e-6, 0.005

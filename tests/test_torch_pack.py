@@ -45,6 +45,7 @@ from rt_torch.kernels import dispatch
 from rt_torch.kernels import sphere_kernel as tsk
 from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import scenes
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 32                      # visit entries a batch (tris_trace.cuh)
 CHUNK = ttk.CHUNK

@@ -23,6 +23,7 @@ from rt_torch.probes import __main__ as probes_cli
 from rt_torch.probes import lane_gather as tlg
 from rt_torch.probes import r5_mxu as tmx
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -433,16 +434,6 @@ def test_woop_least_over_chunk_slices_is_the_whole_product_bitwise(n_chunks,
     assert 0.05 < float((whole != tmx._FLT_MAX).float().mean()) < 0.95
 
 
-@pytest.fixture
-def one_thread():
-    """One torch thread: a CPU op past 32768 elements runs on several, and
-    many times slower under the test run's workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _block_slices(kernel, n_chunks):
     """The slice of each block of a cluster and the pieces it is staged
     and scanned in, as the launcher plans them at n_chunks."""
@@ -474,7 +465,7 @@ def test_piece_plan_is_one_piece_where_a_slice_fits():
                 assert max(b - a for a, b in parts) <= piece
 
 
-def test_mt_scan_least_over_pieces_is_the_whole_slice_bitwise(one_thread):
+def test_mt_scan_least_over_pieces_is_the_whole_slice_bitwise():
     """F2, A at 301 chunks: the second block's slice (151 chunks) in the
     two pieces the launcher plans; ray 0 aimed at a row of the first piece
     with that row copied into the second.  torch.minimum over the pieces'
@@ -508,7 +499,7 @@ def test_mt_scan_least_over_pieces_is_the_whole_slice_bitwise(one_thread):
     assert set(torch.stack(ts).argmin(dim=0).tolist()) == {0, 1}
 
 
-def test_woop_least_over_pieces_is_the_whole_slice_bitwise(one_thread):
+def test_woop_least_over_pieces_is_the_whole_slice_bitwise():
     """F2, B at 600 chunks: a block's slice (75 chunks) in the two pieces
     the launcher plans, the first hitting ray's winning triangle copied
     into the other piece.  torch.minimum over the pieces' plain products

@@ -35,18 +35,9 @@ from rt_torch.core import vecmath as vm
 from rt_torch.kernels import dispatch
 from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import scenes
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GROUP = ttk.GROUP
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread a test: the tensors here pass torch's parallel
-    grain, and threads beside the other test processes only contend."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _slab_bits(chunks, o, inv_d):

@@ -26,6 +26,7 @@ from rt_torch.kernels import dispatch
 from rt_torch.kernels import replay_kernel as rk
 from rt_torch.scene import scenes
 from rt_torch.utils import profiling
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H, TIME = 64, 32, 1000
 GRAD_RTOL = 1e-5

@@ -14,6 +14,7 @@ import torch
 from rt.core import rng as jrng
 from rt.kernels import plane_math as pm
 from rt_torch.core import rng, vecmath as vm
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N = 10_000
 

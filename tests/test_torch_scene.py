@@ -22,6 +22,7 @@ from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.scene import objloader as tobj
 from rt_torch.scene import scenes as tscenes
 from test_torch_parity_util import scene_fields
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCENES = ["quad", "cube", "suzanne"]
 

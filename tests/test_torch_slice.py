@@ -31,6 +31,7 @@ from rt_torch.render import ppm as tppm
 from rt_torch.render.renderer import ProgressiveRenderer as TorchRenderer
 from rt_torch.scene import scenes as tscenes
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H, BOUNCES = 64, 32, 3
 JAX_TILE = (32, 128)          # dispatch.wave_params of rt/ at 64x32

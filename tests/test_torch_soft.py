@@ -46,6 +46,7 @@ from rt_torch import convert
 from rt_torch.config import RenderConfig
 from rt_torch.grad import soft
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 48, 32
 TIME = 1000
@@ -55,14 +56,6 @@ CURVE_RTOL = 1e-4
 CAMERA = dict(eye=(0.15, 0.1, 3.4), target=(0.0, 0.0, 0.0),
               focal_length=3.5, focal_blur=0.04, fov=np.pi * 0.2)
 REFS = U.JaxRefs(__file__)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def setup(name="test_scene_metal", bounces=2):

@@ -40,6 +40,7 @@ from rt_torch import convert
 from rt_torch.config import RenderConfig
 from rt_torch.grad import soft_tris as st
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIME = 1000
 FORWARD_ATOL = 1e-6
@@ -48,14 +49,6 @@ GRAD_RTOL = 1e-4
 CURVE_RTOL = 1e-4
 LOOK = (0.0, 0.1, -3.0)          # scene_cube's camera target
 REFS = U.JaxRefs(__file__)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def setup(name="scene_cube", w=48, h=32):

@@ -47,6 +47,7 @@ from rt_torch.kernels.tris_kernel import TraceFlags
 from rt_torch.render import ppm as tppm
 from rt_torch.scene import scenes as tscenes
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIME = 1000
 FLIP_ABOVE = 1e-6

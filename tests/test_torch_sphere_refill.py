@@ -16,16 +16,9 @@ from rt_torch.kernels import dispatch as tdispatch
 from rt_torch.kernels import sphere_kernel as tsk
 from rt_torch.kernels import sphere_schedule as ss
 from rt_torch.scene import scenes as tscenes
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIME = 1000
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def frame(make_scene, spp, bounces, width=48, height=13):

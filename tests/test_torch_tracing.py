@@ -24,6 +24,7 @@ from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.render.renderer import ProgressiveRenderer
 from rt_torch.scene import scenes
 from rt_torch.utils import profiling
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIME = 1000
 

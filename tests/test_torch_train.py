@@ -41,6 +41,7 @@ from rt_torch.grad.train import _tri_scene_params
 from rt_torch.kernels import replay_kernel as rk
 from rt_torch.utils import profiling
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H, TILE = 64, 32, (16, 128)
 TIME = 1000

@@ -34,6 +34,7 @@ from rt_torch.grad import record_hits, replay_color
 from rt_torch.kernels import dispatch as tdispatch
 from rt_torch.kernels import tris_kernel as ttk
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 W, H, HP, WP = 64, 32, 32, 128
 TIME = 1000

@@ -29,6 +29,7 @@ from rt_torch.kernels import tris_kernel as ttk
 from rt_torch.render import ppm as tppm
 from rt_torch.scene import scenes as tscenes
 import test_torch_parity_util as U
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TIME = 1000
 FLIP_ABOVE, FLIP_LIMIT, U8_BOUND_PCT = 1e-6, 0.005, 0.05
